@@ -27,9 +27,38 @@ is missing.  Phases, each printing one JSON line:
    cross-check); reducts and cores equal, the Θ_PR history bit-equal, every
    kernel's launch count > 0 in that phase; then a small input (mushroom,
    2,000 rows) on the card against the same driver on the CPU;
-5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line (times at
-   n_bins = 1,310,720, Θ_PR; launches from phase 4) and, last,
-   ``{"ok": true, "device": {...}}``.
+5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
+   ``{"ok": true, "device": {...}}`` (after phases 6-8).
+
+The LM serving slice adds:
+
+6. the flash-attention and RWKV6 kernels vs their plain versions on the
+   card: flash at tinyllama-1.1b prefill shapes (B = 1, 32 query heads over
+   4 kv heads, S ∈ {1,024, 2,048}, Dh 64, causal; in bf16 each element
+   within one output rounding, |d| <= 1e-2·|plain| + 2e-3, and the same
+   inputs in f32 within rtol = atol = 2e-5), RWKV6 at rwkv6-3b shapes
+   (B = 1, H = 40, T ∈ {1,024, 2,048}, D = 64, f32) and a decode step
+   (B = 4, T = 1), within rtol = atol = 1e-4.  CUDA-event times of kernel, plain version and, for flash,
+   one ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls), beside the bound: flash 4·Hq·Dh operations per visible (query,
+   key) pair over 989 TFLOP/s (bf16) against q, k, v, o read or written once
+   over 3.35 TB/s; RWKV6 7·D² f32 operations per token and head over
+   67 TFLOP/s against r, k, v, w, o and the state once;
+7. serving at full width and full depth in bf16, tinyllama-1.1b then
+   rwkv6-3b, through ``build_model`` and ``ServingEngine.serve``: 8 requests,
+   prompt lengths seeded in [256, 1,536], 32 new tokens, ``max_batch`` 4,
+   ``cache_len`` 2,048.  Every request completes with its budget, no logit
+   is NaN, and ``flash_attention`` (tinyllama) / ``rwkv6`` (rwkv6-3b) were
+   launched (counts set to 0 just before each model's run, read just
+   after).  Prints prefill ms, decode-step ms, tokens/s and peak memory;
+8. a cross-check at full width with the depth cut to 2 layers, f32 with
+   TF32 off: the same parameters served on the card and on the CPU give
+   equal tokens, and prefill logits agree within 1e-4·max|logit| (the
+   CPU's top-2 gap is printed where a token differs).
+
+Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
+1,310,720, Θ_PR, launches from phase 4; flash at S = 2,048 and RWKV6 at
+T = 2,048, launches from phase 7.
 """
 from __future__ import annotations
 
@@ -41,10 +70,14 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
+
+import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SHAPE = dict(G=131_072, n_dec=23, V=10, nc=41)
 N_BINS = (160, 10_240, 1_310_720)
 DELTAS = ("PR", "SCE", "LCE", "CCE")
@@ -52,12 +85,23 @@ REPLACES = {
     "contingency": "src/repro/kernels/contingency/kernel.py:76",
     "fused_theta": "src/repro/kernels/contingency/fused.py:85",
     "sweep_theta": "src/repro/kernels/contingency/sweep.py:98",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:99",
+    "rwkv6": "src/repro/kernels/rwkv6/kernel.py:71",
 }
 SOURCES = {
     "contingency": "src/repro_torch/kernels/contingency/csrc/contingency.cu",
     "fused_theta": "src/repro_torch/kernels/contingency/csrc/fused_theta.cu",
     "sweep_theta": "src/repro_torch/kernels/contingency/csrc/sweep_theta.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "rwkv6": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
 }
+FLASH_SEQ = (1_024, 2_048)          # tinyllama prefill: B 1, Hq 32 / Hkv 4, Dh 64
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3   # per element: one bf16 rounding
+FLASH_F32_TOL = 2e-5
+RWKV_SHAPES = ((1, 1_024), (1, 2_048), (4, 1))   # rwkv6-3b (B, T): H 40, D 64
+SERVE = dict(requests=8, prompt_min=256, prompt_max=1_536, new_tokens=32,
+             max_batch=4, cache_len=2_048)
+CROSS = dict(layers=2, prompts=(300, 150, 17), new_tokens=8, max_batch=2, cache_len=512)
 KDD99 = ["--dataset", "kdd99", "--max-rows", "5000000", "--device", "cuda"]
 MAIN_RUNS = [  # (backend, delta)
     ("sweep", "PR"), ("fused", "PR"), ("pallas", "PR"), ("segment", "PR"),
@@ -97,9 +141,9 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -275,6 +319,227 @@ def phase_small_reference(torch, plar_reduce, scaled_paper_dataset) -> dict:
     return {"agree": checks}
 
 
+def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
+    """The flash and RWKV6 kernels vs their plain versions at the serving
+    path's full-width shapes; times and bounds."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the f32 plain versions
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for s in FLASH_SEQ:
+        b, hq, hkv, dh = 1, 32, 4, 64
+        q = torch.randn((b, hq, s, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = fa.attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        # bf16: one rounding of the same f32 value, element by element
+        over = float((diff - (FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL)).max())
+        if not (bool(torch.isfinite(got).all()) and over <= 0):
+            raise AssertionError(f"flash_attention != plain at S={s} (bf16): max err {err}, "
+                                 f"{over} past |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}")
+        # f32: the same kernel body and inputs, without the output rounding
+        qf, kf, vf = q.float(), k.float(), v.float()
+        got32 = fa.flash_attention(qf, kf, vf, causal=True)
+        want32 = fa.attention_ref(qf, kf, vf, causal=True)
+        err32 = float((got32 - want32).abs().max())
+        if not torch.allclose(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL):
+            raise AssertionError(f"flash_attention != plain at S={s} (f32): max err {err32}")
+        del qf, kf, vf, got32, want32, diff
+        pairs = b * s * (s + 1) // 2                       # visible (query, key) pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        b_ms, b_by = bound(nbytes, 4 * hq * dh * pairs, PEAK_BF16_OPS_PER_S)
+        rows.append(dict(
+            kernel="flash_attention", shape=dict(B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh,
+                                                 dtype="bfloat16", causal=True),
+            max_abs_err=err, f32_max_abs_err=err32,
+            tolerance=(f"bf16 |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}; "
+                       f"f32 rtol = atol = {FLASH_F32_TOL}"),
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20),
+            plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v, causal=True), 5),
+            library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20),
+            bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, got, want
+    for b, t in RWKV_SHAPES:
+        h, d = 40, 64
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        r, k, v = rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5
+        w, u, s0 = torch.sigmoid(rnd(b, h, t, d)), rnd(h, d) * 0.5, rnd(b, h, d, d) * 0.1
+        o, st = rk.rwkv6(r, k, v, w, u, s0)
+        o_ref, st_ref = rk.rwkv6_ref(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        err = max(float((o - o_ref).abs().max()), float((st - st_ref).abs().max()))
+        if not (torch.allclose(o, o_ref, rtol=1e-4, atol=1e-4)
+                and torch.allclose(st, st_ref, rtol=1e-4, atol=1e-4)):
+            raise AssertionError(f"rwkv6 != plain at B={b} T={t}: max err {err}")
+        nbytes = 4 * (5 * b * h * t * d + 2 * b * h * d * d + h * d)
+        b_ms, b_by = bound(nbytes, 7 * d * d * t * b * h)
+        rows.append(dict(
+            kernel="rwkv6", shape=dict(B=b, H=h, T=t, D=d, dtype="float32"),
+            max_abs_err=err, tolerance=1e-4,
+            ms=time_ms(torch, lambda: rk.rwkv6(r, k, v, w, u, s0), 20),
+            plain_ms=time_ms(torch, lambda: rk.rwkv6_ref(r, k, v, w, u, s0), 2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del r, k, v, w, u, s0, o, st, o_ref, st_ref
+    torch.cuda.empty_cache()
+    for row in rows:
+        emit({"phase": "lm_kernel", **row, "card": card})
+    return {"rows": rows}
+
+
+def phase_serving(torch, lm, card: str) -> dict:
+    """Full-width, full-depth bf16 serving of both ported families."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    results = {}
+    for arch, kernel in (("tinyllama-1.1b", "flash_attention"), ("rwkv6-3b", "rwkv6")):
+        cfg = get_config(arch)
+        allocated_before = torch.cuda.memory_allocated()   # the previous model is gone
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        lens = rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1, SERVE["requests"])
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)),
+                        max_new_tokens=SERVE["new_tokens"]) for i, n in enumerate(lens)]
+        engine = ServingEngine(cfg, model, max_batch=SERVE["max_batch"],
+                               cache_len=SERVE["cache_len"], device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with _watch_logits(model) as finite:
+            lm.reset()                               # counts of this run only
+            t0 = time.perf_counter()
+            done = engine.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = lm.counts()
+        for r in done:
+            if r.output is None or len(r.output) != SERVE["new_tokens"]:
+                raise AssertionError(f"{arch}: request {r.rid} ended with {r.output}")
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{arch}: kernel {kernel} was not launched while serving")
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"{arch}: a prefill or decode step gave a non-finite logit")
+        n_new = sum(len(r.output) for r in done)
+        out = dict(
+            arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.param_dtype,
+            params=sum(p.numel() for p in model.parameters()), init_s=init_s,
+            logit_checks=len(finite), allocated_before_build=allocated_before,
+            prompt_lens=[int(n) for n in lens], new_tokens=n_new, wall_s=wall,
+            tokens_per_s=n_new / wall,
+            prefill_ms=[x * 1e3 for x in engine.prefill_s],
+            prefill_ms_mean=1e3 * sum(engine.prefill_s) / len(engine.prefill_s),
+            decode_step_ms_mean=1e3 * sum(engine.decode_step_s) / len(engine.decode_step_s),
+            decode_step_ms_batch4=_mean_ms(engine, 4), decode_steps=len(engine.decode_step_s),
+            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+        emit({"phase": "serving", "card": card, **out})
+        results[arch] = out
+        del model, engine, done, finite
+        torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def _watch_logits(model):
+    """While open, ``model.prefill`` / ``decode`` append whether all their
+    logits are finite (a device flag: no extra sync while serving).  On exit
+    the class's methods come back, which also breaks the wrapper's reference
+    to the model, so ``del model`` frees its weights."""
+    flags = []
+
+    def watch(name):
+        fn = getattr(model, name)
+
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            flags.append(out[0].isfinite().all())
+            return out
+        setattr(model, name, wrapped)
+
+    watch("prefill")
+    watch("decode")
+    try:
+        yield flags
+    finally:
+        del model.prefill, model.decode
+
+
+def _mean_ms(engine, batch: int):
+    steps = [t for t, b in zip(engine.decode_step_s, engine.decode_batch) if b == batch]
+    return 1e3 * sum(steps) / len(steps) if steps else None
+
+
+def phase_cross_check(torch, card: str) -> dict:
+    """Full width, 2 layers, f32, TF32 off: the card serves what the CPU serves."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    results = {}
+    for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=CROSS["layers"])
+        cpu = build_model(cfg, device="cpu", dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(1))
+        card_model = build_model(cfg, device="cuda", dtype=torch.float32)
+        card_model.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in CROSS["prompts"]]
+        tokens, logits = {}, {}
+        for name, model, dev in (("cuda", card_model, "cuda"), ("cpu", cpu, "cpu")):
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=CROSS["new_tokens"])
+                    for i, p in enumerate(prompts)]
+            eng = ServingEngine(model.cfg, model, max_batch=CROSS["max_batch"],
+                                cache_len=CROSS["cache_len"], device=dev)
+            tokens[name] = [r.output for r in eng.serve(reqs)]
+            with torch.inference_mode():
+                lg, _, _ = model.prefill(torch.as_tensor(prompts[0][None], device=dev),
+                                         CROSS["cache_len"])
+            logits[name] = lg.float().cpu()
+        scale = float(logits["cpu"].abs().max())
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        out = dict(arch=arch, layers=CROSS["layers"], d_model=cfg.d_model, dtype="float32",
+                   prompts=list(CROSS["prompts"]), tokens_equal=tokens["cuda"] == tokens["cpu"],
+                   prefill_logit_max_abs_err=err, max_abs_logit=scale)
+        if not out["tokens_equal"]:
+            out["first_difference"] = _first_difference(torch, cpu, prompts, tokens)
+        emit({"phase": "cross_check", "card": card, **out})
+        if not out["tokens_equal"]:
+            raise AssertionError(f"{arch}: card tokens != CPU tokens: {out['first_difference']}")
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{arch}: prefill logits differ by {err} (max |logit| {scale})")
+        results[arch] = out
+        del cpu, card_model
+        torch.cuda.empty_cache()
+    return results
+
+
+def _first_difference(torch, cpu_model, prompts, tokens) -> dict:
+    """Where the card's tokens first leave the CPU's, and the CPU's top-2
+    logit gap at that step (greedy decode of that request alone)."""
+    for i, (a, b) in enumerate(zip(tokens["cuda"], tokens["cpu"])):
+        if a == b:
+            continue
+        step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([prompts[i], np.asarray(b[:step], dtype=np.int64)])
+        with torch.inference_mode():
+            lg = cpu_model(torch.as_tensor(seq[None]))[0, -1].float()
+        top = torch.topk(lg, 2).values
+        return dict(request=i, step=step, cuda=a[step], cpu=b[step],
+                    cpu_top2_gap=float(top[0] - top[1]))
+    return {}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the full report here (JSON)")
@@ -293,8 +558,15 @@ def main() -> None:
 
     from repro_torch.core import plar_reduce
     from repro_torch.data import scaled_paper_dataset
-    from repro_torch.kernels.contingency import build, ops, ref
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6 as rk
+    from repro_torch.kernels.contingency import ops, ref
     from repro_torch.launch import reduce as reduce_cli
+
+    lm = types.SimpleNamespace(  # the serving path's launch counters
+        reset=lambda: (fa.reset_launch_counts(), rk.reset_launch_counts()),
+        counts=lambda: {**fa.launch_counts(), **rk.launch_counts()})
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -310,6 +582,9 @@ def main() -> None:
     report = {"card": smi, "kernels_vs_plain": phase_kernels(torch, ops, ref, smi)}
     report["main_path"] = phase_main_path(torch, ops, reduce_cli, smi)
     report["small_reference"] = phase_small_reference(torch, plar_reduce, scaled_paper_dataset)
+    report["lm_kernels_vs_plain"] = phase_lm_kernels(torch, fa, rk, smi)
+    report["serving"] = phase_serving(torch, lm, smi)
+    report["cross_check"] = phase_cross_check(torch, smi)
 
     top = N_BINS[-1]
     kernels = []
@@ -326,6 +601,20 @@ def main() -> None:
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
             "library_ms": pick["library_ms"],
             "at": {"n_bins": top, "delta": pick["delta"], **SHAPE},
+        })
+    for name, key, top in (("flash_attention", "S", FLASH_SEQ[-1]),
+                           ("rwkv6", "T", RWKV_SHAPES[1][1])):
+        rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == name]
+        pick = next(r for r in rows if r["shape"][key] == top and r["shape"]["B"] == 1)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": (report["serving"]["tinyllama-1.1b"] if name == "flash_attention"
+                         else report["serving"]["rwkv6-3b"])["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
+            "library_ms": pick["library_ms"], "at": pick["shape"],
         })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,139 +1,20 @@
-"""Build and load the contingency kernels (CUDA C++, ``sm_90a``).
+"""The contingency family's view of the port's one kernel build.
 
-Each ``csrc/*.cu`` source is compiled by its own ``nvcc`` into a shared
-library with a plain C interface, all of them started together, at first
-use:
-
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false \\
-         -shared -Xcompiler -fPIC -o build/repro_torch/lib<name>-<hash>.so <name>.cu
-
-and loaded with :mod:`ctypes` (every pointer and the stream as
-``c_void_p``).  A library's file name carries a hash of the sources and
-flags, so an edit rebuilds and a stale library is never loaded.  The build
-directory is ``build/repro_torch`` under the repository root (``.gitignore``
-lists ``build/``), or ``$REPRO_TORCH_BUILD_DIR``.
-
-``--fmad=false`` keeps every product and sum of the θ' epilogues rounded on
-its own, as the plain PyTorch version's ops are; ``--use_fast_math`` is never
-passed (``logf`` must stay accurate for the argmin tie band).
+The build itself (one ``nvcc`` per source, all started together, hashed
+library names under ``build/repro_torch/``) lives in
+:mod:`repro_torch.kernels.build`, which builds every kernel family.  This
+module keeps the names its callers import: :data:`KERNELS` maps the three
+contingency kernels to their sources in :data:`CSRC`, and
+:func:`build_all` / :func:`load` / :func:`check` are the shared ones.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict
 
-__all__ = ["KERNELS", "build_all", "build_dir", "load", "nvcc_path"]
+from ..build import build_all, build_dir, check, load, nvcc_path
+from ..build import KERNELS as _ALL
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-# kernel name → its source; every source includes the shared headers
-KERNELS: Dict[str, str] = {
-    "contingency": "contingency.cu",
-    "fused_theta": "fused_theta.cu",
-    "sweep_theta": "sweep_theta.cu",
-}
-_HEADERS = ("common.cuh", "theta_tiles.cuh")
-NVCC_FLAGS: Tuple[str, ...] = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+__all__ = ["CSRC", "KERNELS", "build_all", "build_dir", "check", "load", "nvcc_path"]
 
-_lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    # src/repro_torch/kernels/contingency/build.py → repository root
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def nvcc_path() -> str:
-    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if home and (Path(home) / "bin" / "nvcc").exists():
-            return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the contingency "
-        "kernels are compiled from csrc/ at first use")
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256()
-    for fname in (KERNELS[name],) + _HEADERS:
-        h.update(fname.encode())
-        h.update((CSRC / fname).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build_all(force: bool = False) -> float:
-    """Compile every missing library (every library with ``force``), one
-    ``nvcc`` per source, all started together.
-
-    Returns the seconds taken.  Raises with ``nvcc``'s output if any build
-    fails.
-    """
-    with _lock:
-        t0 = time.perf_counter()
-        todo = [n for n in KERNELS if force or not _lib_path(n).exists()]
-        if not todo:
-            return 0.0
-        out_dir = build_dir()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        nvcc = nvcc_path()
-        procs: List[Tuple[str, Path, subprocess.Popen]] = []
-        for name in todo:
-            target = _lib_path(name)
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])]
-            procs.append((name, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for name, tmp, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {name} (rc {proc.returncode})\n{out}")
-            if proc.returncode != 0:
-                failed.append(name)
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, _lib_path(name))  # atomic: no half-written library
-        if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
-        return time.perf_counter() - t0
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built first if missing)."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    path = _lib_path(name)
-    if not path.exists():
-        build_all()
-    lib = ctypes.CDLL(str(path))
-    lib.repro_error_string.argtypes = [ctypes.c_int]
-    lib.repro_error_string.restype = ctypes.c_char_p
-    _libs[name] = lib
-    return lib
-
-
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launch function returned a non-zero ``cudaError_t``."""
-    if err != 0:
-        msg: Optional[bytes] = lib.repro_error_string(err)
-        raise RuntimeError(
-            f"{what}: CUDA error {err} ({(msg or b'?').decode()})")
+CSRC = _ALL["contingency"].csrc
+KERNELS: Dict[str, str] = {n: k.source for n, k in _ALL.items() if k.family == "contingency"}

@@ -1,7 +1,7 @@
 // Shared pieces of the contingency kernels: the plain C error interface and
 // the θ' row epilogues of the four measures (repro_torch/core/measures.py).
 //
-// Built with --fmad=false (kernels/contingency/build.py): every product and
+// Built with --fmad=false (kernels/build.py): every product and
 // sum below rounds on its own, as the plain PyTorch version's elementwise
 // ops do, so a row's θ' matches the plain version up to the order of the
 // sums over the decision axis.  No --use_fast_math: logf must stay the

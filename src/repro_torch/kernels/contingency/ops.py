@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.core.measures import theta_scale
 
-from . import build
+from .. import build
+from ..launching import on_cpu as _on_cpu, stream as _stream
 from .ref import contingency_ref, fused_theta_ref, sweep_theta_ref
 
 __all__ = ["LAUNCHES", "contingency", "fused_theta", "sweep_theta",
@@ -56,18 +57,6 @@ def _launcher(name: str):
     return lib, fn
 
 
-def _on_cpu(name: str, **tensors: torch.Tensor) -> bool:
-    """True for all-CPU operands (plain version), False for all-CUDA (kernel)."""
-    types = {t.device.type for t in tensors.values()}
-    if types == {"cpu"}:
-        return True
-    if types != {"cuda"} or len({t.device for t in tensors.values()}) != 1:
-        raise ValueError(
-            f"{name}: operands must all lie on the CPU or all on one CUDA "
-            f"device, got {[str(t.device) for t in tensors.values()]}")
-    return False
-
-
 def _check(name: str, dtypes: Dict[str, torch.dtype], **tensors: torch.Tensor) -> None:
     for key, t in tensors.items():
         if t.dtype != dtypes[key]:
@@ -90,10 +79,6 @@ def _check_smem(name: str, n_dec: int, device: torch.device) -> None:
         raise ValueError(
             f"{name}: a 256-bin tile of n_dec={n_dec} decisions needs {need} "
             f"bytes of shared memory; a block may take {limit}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def contingency(

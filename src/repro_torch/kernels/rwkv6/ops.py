@@ -1,0 +1,100 @@
+"""Public wrapper of the RWKV6 kernel: dispatch on the input's device.
+
+* CPU tensors run the plain PyTorch version (:func:`.ref.rwkv6_ref`).
+* CUDA tensors launch the hand-written CUDA kernel (``csrc/rwkv6.cu``, built
+  at first use by :mod:`repro_torch.kernels.build`) on PyTorch's current
+  stream, or raise.  There is no fallback to the plain version.
+
+:data:`LAUNCHES` counts kernel launches (one per launch, nowhere else), so a
+run can show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .. import build
+from ..launching import on_cpu, stream
+from .ref import rwkv6_ref
+
+__all__ = ["HEAD_DIMS", "LAUNCHES", "column_split", "launch_counts",
+           "reset_launch_counts", "rwkv6"]
+
+LAUNCHES: Dict[str, int] = {"rwkv6": 0}
+HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernel's compiled head widths
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["rwkv6"] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def column_split(bh: int, d: int, n_sm: int) -> int:
+    """CTAs per (b, h): 1, 2 or 4, doubled while the grid has fewer CTAs
+    than the card has SMs and each CTA keeps at least 16 columns."""
+    split = 1
+    while split < 4 and bh * split < n_sm and d // (2 * split) >= 16:
+        split *= 2
+    return split
+
+
+def rwkv6(
+    r: torch.Tensor,  # [B, H, T, D] f32
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,  # decay in (0, 1)
+    u: torch.Tensor,  # [H, D] f32
+    init_state: Optional[torch.Tensor] = None,  # [B, H, D, D] f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence over [B, H, T, D]; returns (o, final state)."""
+    tensors = dict(r=r, k=k, v=v, w=w, u=u)
+    if init_state is not None:
+        tensors["init_state"] = init_state
+    if on_cpu("rwkv6", **tensors):
+        return rwkv6_ref(r, k, v, w, u, init_state)
+    if r.dim() != 4:
+        raise ValueError("rwkv6: r, k, v, w must be [B, H, T, D]")
+    b, h, t, d = r.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"rwkv6: head_dim {d} not in {HEAD_DIMS}")
+    if init_state is None:
+        init_state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    tensors["init_state"] = init_state
+    shapes = {"r": (b, h, t, d), "k": (b, h, t, d), "v": (b, h, t, d),
+              "w": (b, h, t, d), "u": (h, d), "init_state": (b, h, d, d)}
+    for name, x in tensors.items():
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"rwkv6: {name} must be {list(shapes[name])}, got {list(x.shape)}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"rwkv6: {name} must be torch.float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"rwkv6: {name} must be contiguous")
+    o = torch.empty_like(r)
+    s_fin = torch.empty_like(init_state)
+    n_sm = _sm_count(r.device.index if r.device.index is not None
+                     else torch.cuda.current_device())
+    with torch.cuda.device(r.device):
+        lib = build.load("rwkv6")
+        fn = lib.rwkv6_launch
+        if fn.argtypes is None:
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                 init_state.data_ptr(), o.data_ptr(), s_fin.data_ptr(), b * h, h, t, d,
+                 column_split(b * h, d, n_sm), stream(r.device))
+        build.check(lib, err, "rwkv6 kernel launch")
+    LAUNCHES["rwkv6"] += 1
+    return o, s_fin

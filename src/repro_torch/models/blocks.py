@@ -1,0 +1,128 @@
+"""Layer stack: the period pattern over blocks, full-sequence and decode.
+
+The port's ``repro.models.blocks``.  The JAX package stacks each pattern
+position's parameters over periods and scans; the port keeps one
+:class:`Block` module per layer (layer ``l`` is period ``l // period`` at
+pattern position ``l % period``) and loops over them.  ``layer_pattern`` is
+kept so the cache layout stays the JAX one: ``{"pos{j}": {leaf: [n_periods,
+B, ...]}}``.  Block kinds ported: ``attn`` (with a dense MLP) and ``rwkv``;
+``mamba`` and MoE raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .attention import attn_defs, self_attention_decode, self_attention_full
+from .layers import ParamTree, norm_def, rms_norm
+from .mlp import mlp, mlp_defs
+from .rwkv import rwkv_channel_mix, rwkv_defs, rwkv_time_mix
+
+NOT_PORTED = ("not ported yet (ROADMAP §1b 'LM families: MoE, mamba/hybrid, "
+              "enc-dec, frontends')")
+
+
+def layer_pattern(cfg) -> Tuple[List[Tuple[str, bool]], int]:
+    """[(kind, is_moe)] over one period + the period count."""
+    kinds = cfg.block_kinds()
+    period = 1
+    if cfg.attn_every:
+        period = math.lcm(period, cfg.attn_every)
+    if cfg.n_experts:
+        period = math.lcm(period, cfg.moe_every)
+    assert cfg.n_layers % period == 0, (cfg.n_layers, period)
+    pattern = [(kinds[i], cfg.layer_is_moe(i) and kinds[i] != "rwkv") for i in range(period)]
+    return pattern, cfg.n_layers // period
+
+
+def block_defs(cfg, kind: str, is_moe: bool) -> Dict[str, Any]:
+    """ParamDefs of one block (pre-norms + mixer + feed-forward)."""
+    if kind == "mamba":
+        raise NotImplementedError(f"mamba blocks are {NOT_PORTED}")
+    if is_moe:
+        raise NotImplementedError(f"MoE blocks are {NOT_PORTED}")
+    defs: Dict[str, Any] = {"norm1": norm_def(cfg)}
+    if kind == "rwkv":
+        # rwkv block = time-mix + channel-mix, no separate mlp
+        defs["time_mix"] = rwkv_defs(cfg)
+        defs["norm2"] = norm_def(cfg)
+        return defs
+    defs["attn"] = attn_defs(cfg)
+    defs["norm2"] = norm_def(cfg)
+    defs["ffn"] = mlp_defs(cfg)
+    return defs
+
+
+class Block(ParamTree):
+    """One layer's parameters and its two paths."""
+
+    def __init__(self, cfg, kind: str, is_moe: bool, *, device: torch.device,
+                 seed: int, prefix: str):
+        super().__init__(block_defs(cfg, kind, is_moe), device=device, seed=seed,
+                         prefix=prefix)
+        self.cfg, self.kind = cfg, kind
+
+    def full(self, x, positions, *, window=None, collect_cache: bool = False):
+        """Full-sequence path.  Returns (x, cache leaf dict or None)."""
+        cfg = self.cfg
+        h = rms_norm(x, self["norm1"], cfg.norm_eps)
+        if self.kind == "rwkv":
+            o, (tm_last, wkv) = rwkv_time_mix(self["time_mix"], h, cfg, return_state=True)
+            x = x + o
+            h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
+            o2, cm_last = rwkv_channel_mix(self["time_mix"], h2, cfg, return_state=True)
+            cache = {"tm_shift": tm_last, "wkv": wkv, "cm_shift": cm_last}
+            return x + o2, (cache if collect_cache else None)
+        o, (k, v) = self_attention_full(self["attn"], h, positions, cfg, window=window,
+                                        return_kv=True)
+        x = x + o
+        h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
+        x = x + mlp(self["ffn"], h2, cfg)
+        return x, ({"k": k, "v": v} if collect_cache else None)
+
+    def decode(self, x, cache: Dict[str, torch.Tensor], lengths, *, window=None):
+        """One decode step.  Attention writes its KV cache in place; RWKV
+        returns its new states.  Returns (x, the cache leaves to replace)."""
+        cfg = self.cfg
+        h = rms_norm(x, self["norm1"], cfg.norm_eps)
+        if self.kind == "rwkv":
+            o, (tm_last, wkv) = rwkv_time_mix(
+                self["time_mix"], h, cfg, shift_state=cache["tm_shift"],
+                wkv_state=cache["wkv"], return_state=True)
+            x = x + o
+            h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
+            o2, cm_last = rwkv_channel_mix(self["time_mix"], h2, cfg,
+                                           shift_state=cache["cm_shift"], return_state=True)
+            return x + o2, {"tm_shift": tm_last, "wkv": wkv, "cm_shift": cm_last}
+        o, _, _ = self_attention_decode(self["attn"], h, cfg, cache["k"], cache["v"],
+                                        lengths, window=window)
+        x = x + o
+        h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
+        return x + mlp(self["ffn"], h2, cfg), {}
+
+
+def run_stack_full(blocks, x, positions, cfg, *, window=None, collect_cache: bool = False
+                   ) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
+    """Every layer in order.  Returns (x, per-layer cache leaves or None)."""
+    caches = []
+    for blk in blocks:
+        x, c = blk.full(x, positions, window=window, collect_cache=collect_cache)
+        caches.append(c)
+    return x, (caches if collect_cache else None)
+
+
+def run_stack_decode(blocks, x, cfg, caches, lengths, *, window=None):
+    """One decode step through every layer; ``caches`` (the stacked JAX
+    layout) is updated in place and returned."""
+    pattern, _ = layer_pattern(cfg)
+    period = len(pattern)
+    for layer, blk in enumerate(blocks):
+        p, j = divmod(layer, period)
+        leaves = caches[f"pos{j}"]
+        x, updates = blk.decode(x, {k: leaf[p] for k, leaf in leaves.items()}, lengths,
+                                window=window)
+        for k, val in updates.items():
+            leaves[k][p].copy_(val)
+    return x, caches

@@ -1,0 +1,142 @@
+"""CausalLM: the decoder-only model family, as an ``nn.Module``.
+
+The port's ``repro.models.lm``.  Entry points:
+
+* ``forward(tokens)`` — logits for a full sequence.
+* ``prefill(tokens, cache_len)`` — full forward that also returns the
+  serving cache and the lengths.
+* ``decode(cache, tokens, lengths)`` — one incremental step against the
+  cache.  The cache is updated in place (the JAX package returns a new one;
+  in place saves a copy of every layer's cache per step) and returned.
+* ``init_cache(batch_size, cache_len)`` — the zero cache.
+
+The cache keeps the JAX layout: ``{"pos{j}": {leaf: [n_periods, B, ...]}}``
+with ``k``/``v`` ``[.., B, Hkv, cache_len, Dh]`` for attention and
+``tm_shift``/``cm_shift`` ``[.., B, D]`` and ``wkv`` ``[.., B, H, Dh, Dh]``
+(f32) for RWKV.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from .blocks import Block, layer_pattern, run_stack_decode, run_stack_full
+from .config import ArchConfig, torch_dtype
+from .layers import add_params, embed_defs, norm_def, rms_norm
+
+Cache = Dict[str, Dict[str, torch.Tensor]]
+
+
+class CausalLM(nn.Module):
+    def __init__(self, cfg: ArchConfig, *, device: torch.device, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        add_params(self, {"embed": embed_defs(cfg), "final_norm": norm_def(cfg)},
+                   device=device, seed=seed)
+        pattern, _ = layer_pattern(cfg)
+        period = len(pattern)
+        self.blocks = nn.ModuleList(
+            Block(cfg, *pattern[layer % period], device=device, seed=seed,
+                  prefix=f"/blocks/pos{layer % period}/{layer // period}")
+            for layer in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+    # ---- embedding / head --------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = self.embed["embedding"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+        if cfg.embed_scale:
+            h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+        return h
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        cdt = torch_dtype(cfg.compute_dtype)
+        if cfg.tie_embeddings:
+            logits = h @ self.embed["embedding"].to(cdt).T
+        else:
+            logits = h @ self.embed["lm_head"].to(cdt)
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits
+
+    # ---- full-sequence path ------------------------------------------------
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h, _ = run_stack_full(self.blocks, self._embed(tokens), positions, self.cfg,
+                              window=self.cfg.window)
+        return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
+
+    # ---- serving -----------------------------------------------------------
+    def _cache_shapes(self, batch_size: int, cache_len: int) -> Dict[str, Dict[str, Any]]:
+        cfg = self.cfg
+        cdt = torch_dtype(cfg.compute_dtype)
+        pattern, n_periods = layer_pattern(cfg)
+        out = {}
+        for j, (kind, _) in enumerate(pattern):
+            if kind == "attn":
+                kv = ((n_periods, batch_size, cfg.n_kv_heads, cache_len, cfg.hd), cdt)
+                out[f"pos{j}"] = {"k": kv, "v": kv}
+            else:  # rwkv
+                shift = ((n_periods, batch_size, cfg.d_model), cdt)
+                hd = cfg.rwkv_head_dim
+                out[f"pos{j}"] = {
+                    "tm_shift": shift,
+                    "wkv": ((n_periods, batch_size, cfg.rwkv_heads, hd, hd), torch.float32),
+                    "cm_shift": shift,
+                }
+        return out
+
+    def init_cache(self, batch_size: int, cache_len: int) -> Cache:
+        return {pos: {k: torch.zeros(shape, dtype=dt, device=self.device)
+                      for k, (shape, dt) in leaves.items()}
+                for pos, leaves in self._cache_shapes(batch_size, cache_len).items()}
+
+    def _stack_cache(self, per_layer: List[Dict[str, torch.Tensor]], b: int,
+                     cache_len: int) -> Cache:
+        """Per-layer prefill states → the stacked cache.  Attention k/v are
+        padded with zeros to ``cache_len``, or cut to it when the prompt is
+        longer."""
+        cache = self.init_cache(b, cache_len)
+        period = len(cache)
+        for layer, leaves in enumerate(per_layer):
+            p, j = divmod(layer, period)
+            for k, val in leaves.items():
+                dst = cache[f"pos{j}"][k][p]
+                if k in ("k", "v"):
+                    n = min(val.shape[2], cache_len)
+                    dst[:, :, :n] = val[:, :, :n]
+                else:
+                    dst.copy_(val)
+        return cache
+
+    def prefill(self, tokens: torch.Tensor, cache_len: int
+                ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+        """Full forward + cache build.  Returns (last-token logits [B, 1, V],
+        cache, lengths [B] int32)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h, per_layer = run_stack_full(self.blocks, self._embed(tokens), positions, cfg,
+                                      window=cfg.window, collect_cache=True)
+        h = rms_norm(h, self.final_norm, cfg.norm_eps)
+        logits = self._logits(h[:, -1:])
+        lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        return logits, self._stack_cache(per_layer, b, cache_len), lengths
+
+    def decode(self, cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor
+               ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+        """tokens [B, T_new] (typically T_new = 1).  Returns (logits, cache,
+        lengths + T_new); ``cache`` is updated in place."""
+        cfg = self.cfg
+        h, cache = run_stack_decode(self.blocks, self._embed(tokens), cfg, cache, lengths,
+                                    window=cfg.window)
+        logits = self._logits(rms_norm(h, self.final_norm, cfg.norm_eps))
+        return logits, cache, lengths + tokens.shape[1]

@@ -1,0 +1,165 @@
+"""The LM serving path's CUDA kernels on the card, and serving card vs CPU.
+
+Marked ``cuda``: every test takes the ``cuda_device`` fixture, which skips
+with a reason where PyTorch sees no card (decided inside the fixture, never
+at import).  On a machine with a card and ``nvcc``:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_lm.py
+
+Tolerances: flash attention rtol = atol = 2e-5 in f32 and, in bf16, one
+output rounding per element (rtol 1e-2, atol 2e-3; the JAX kernel tests'
+0.05 would pass a wrong kernel at the long shapes, where |out| is ~0.05);
+RWKV6 rtol = atol = 1e-4.  Both against the
+kernels' plain versions on the same card.  Served tokens card == CPU, in f32
+with TF32 off.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_ref
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServingEngine
+
+pytestmark = pytest.mark.cuda
+
+FLASH_SHAPES = [  # b, hq, hkv, sq, skv, dh, causal, window
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 1, 192, 192, 64, True, None),
+    (2, 4, 4, 96, 160, 32, True, None),
+    (1, 4, 2, 256, 256, 64, True, 48),
+    (1, 2, 2, 64, 64, 128, False, None),
+    (1, 2, 1, 64, 64, 256, True, None),
+    (1, 4, 4, 1, 160, 64, True, None),
+    (1, 32, 4, 1024, 1024, 64, True, None),   # tinyllama prefill, full width
+    (1, 8, 1, 300, 300, 256, True, None),     # gemma-2b heads
+]
+RWKV_SHAPES = [  # b, h, t, d
+    (2, 2, 64, 16), (1, 3, 128, 32), (2, 1, 33, 8), (1, 2, 256, 64), (1, 1, 7, 4),
+    (1, 40, 512, 64),    # one rwkv6-3b request: 40 heads, columns split over 4 CTAs
+    (4, 40, 1, 64),      # a decode step of 4 requests: 160 heads
+    (4, 40, 40, 64),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(dev, seed, b, hq, hkv, sq, skv, dh, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, hq, sq, dh), (b, hkv, skv, dh), (b, hkv, skv, dh))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dh, causal, window, dtype):
+    q, k, v = _qkv(cuda_device, sq + dh, b, hq, hkv, sq, skv, dh, dtype)
+    before = flash_ops.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    # bf16: both round the same f32 value once, so each element is within
+    # one rounding (|d| <= 1e-2·|want| + 2e-3)
+    rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 2e-3)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_tile_skip_is_exact(cuda_device):
+    """window 48 with sq < skv: most kv tiles lie wholly before the window,
+    and sq > skv rows see none; the skipped tiles change nothing."""
+    for sq, skv in ((200, 456), (100, 64)):
+        q, k, v = _qkv(cuda_device, sq, 1, 4, 2, sq, skv, 64, torch.float32)
+        for window in (48, None):
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.all(flash_attention(q, k, v, causal=True)[:, :, :36] == 0)
+
+
+@pytest.mark.parametrize("b,h,t,d", RWKV_SHAPES)
+def test_rwkv6_kernel_matches_plain(cuda_device, b, h, t, d):
+    g = torch.Generator(device=cuda_device).manual_seed(t * 31 + d)
+    rnd = lambda *s: torch.randn(s, generator=g, device=cuda_device)  # noqa: E731
+    r, k, v = rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5
+    w, u, s0 = torch.sigmoid(rnd(b, h, t, d)), rnd(h, d) * 0.5, rnd(b, h, d, d) * 0.1
+    before = rwkv_ops.launch_counts()["rwkv6"]
+    o, s = rwkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert rwkv_ops.launch_counts()["rwkv6"] == before + 1
+    o_ref, s_ref = rwkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_unaligned_operands_match_aligned(cuda_device):
+    """Contiguous operands that start one float past a 16-byte boundary take
+    the kernel's 4-byte staging path and give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    b, h, t, d = 2, 5, 77, 64
+    ops_ = [torch.randn((b, h, t, d), generator=g, device=cuda_device) * 0.5 for _ in range(3)]
+    ops_.append(torch.sigmoid(torch.randn((b, h, t, d), generator=g, device=cuda_device)))
+    u = torch.randn((h, d), generator=g, device=cuda_device) * 0.5
+    s0 = torch.randn((b, h, d, d), generator=g, device=cuda_device) * 0.1
+    shifted = [torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x.shape).copy_(x)
+               for x in ops_]
+    assert all(x.data_ptr() % 16 for x in shifted) and all(x.is_contiguous() for x in shifted)
+    o, s = rwkv6(*ops_, u, s0)
+    o_u, s_u = rwkv6(*shifted, u, s0)
+    assert torch.equal(o, o_u) and torch.equal(s, s_u)
+
+
+def test_wrappers_reject_bad_operands(cuda_device):
+    q, k, v = _qkv(cuda_device, 0, 1, 4, 2, 16, 16, 64, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="like q"):
+        flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    r = torch.rand((1, 2, 5, 16), device=cuda_device)
+    u = torch.rand((2, 16), device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        rwkv6(r.double(), r.double(), r.double(), r.double(), u.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6(r.transpose(2, 3).contiguous().transpose(2, 3), r, r, r, u)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        rwkv6(r, r, r, r, u.cpu())
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
+def test_reduced_model_served_on_card_equals_cpu(cuda_device, arch):
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (3, 9, 14, 20, 11, 5)]
+
+    def serve(model, device):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        eng = ServingEngine(cfg, model, max_batch=3, cache_len=48, device=device)
+        return [r.output for r in eng.serve(reqs)]
+
+    flash_ops.reset_launch_counts()
+    rwkv_ops.reset_launch_counts()
+    assert serve(card, cuda_device) == serve(cpu, "cpu")
+    counts = {**flash_ops.launch_counts(), **rwkv_ops.launch_counts()}
+    assert counts["flash_attention" if arch.startswith("tiny") else "rwkv6"] > 0

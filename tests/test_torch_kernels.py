@@ -21,7 +21,8 @@ import jax.numpy as jnp
 from repro.core import plan as jplan
 from repro.kernels.contingency import ops as jops
 from repro_torch.core import plan as tplan
-from repro_torch.kernels.contingency import build, ops, ref
+from repro_torch.kernels import build
+from repro_torch.kernels.contingency import ops, ref
 
 # The tensors here are tiny: PyTorch's intra-op thread pool only adds
 # overhead, and across pytest-xdist workers it oversubscribes the cores.
@@ -174,9 +175,12 @@ def test_plain_versions_define_the_wrappers_and_count_nothing_on_cpu():
         ref.fused_theta_ref(packed, d, w, 100.0, delta="LCE", n_bins=300, n_dec=3),
         rtol=0, atol=0)
     assert ops.launch_counts() == {"contingency": 0, "fused_theta": 0, "sweep_theta": 0}
-    assert set(build.KERNELS) == set(ops.LAUNCHES)
-    for src in build.KERNELS.values():
-        assert (build.CSRC / src).is_file()
+    family = {n for n, k in build.KERNELS.items() if k.family == "contingency"}
+    assert family == set(ops.LAUNCHES)
+    for k in build.KERNELS.values():
+        assert (k.csrc / k.source).is_file()
+        for h in k.headers:
+            assert (k.csrc / h).is_file()
 
 
 def test_wrappers_reject_other_devices_and_bad_args():

@@ -197,7 +197,8 @@ def test_cli_device_cpu(capsys):
 
 
 def test_port_imports_no_jax_or_repro():
-    """Importing and running the port leaves jax and repro out of sys.modules."""
+    """Importing and running the port (reductions, and LM serving of both
+    ported families) leaves jax and repro out of sys.modules."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.contingency\n"
@@ -208,6 +209,19 @@ def test_port_imports_no_jax_or_repro():
         "d = rng.integers(0, 2, 80).astype(np.int32)\n"
         "for b in ('segment', 'sweep', 'fused', 'pallas'):\n"
         "    plar_reduce(x, d, delta='SCE', backend=b, device='cpu')\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
+        "import repro_torch.models.convert, repro_torch.launch.serve\n"
+        "import repro_torch.launch.profile_serve\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.serving import Request, ServingEngine\n"
+        "for arch in ('tinyllama-1.1b', 'rwkv6-3b'):\n"
+        "    cfg = get_config(arch).reduced()\n"
+        "    eng = ServingEngine(cfg, build_model(cfg, device='cpu'), max_batch=2,\n"
+        "                        cache_len=24, device='cpu')\n"
+        "    out = eng.serve([Request(rid=i, prompt=np.arange(3 + 7 * i), max_new_tokens=3)\n"
+        "                     for i in range(3)])\n"
+        "    assert [len(r.output) for r in out] == [3, 3, 3]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
