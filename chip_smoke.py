@@ -10,17 +10,25 @@ is missing.  Phases, each printing one JSON line:
 
 1. device: the card, its count, torch/CUDA versions, and ``nvidia-smi``'s
    name and power limit (also printed raw on its own line);
-2. build: the three CUDA kernels compiled by ``nvcc`` from ``csrc/``;
+2. build: every CUDA library compiled by ``nvcc`` from ``csrc/``, one
+   ``nvcc`` per source, all started together;
 3. kernels vs plain versions on the card at the kdd99 main-path shapes
    (G = 131,072 granules, n_dec = 23, V = 10, nc = 41 candidates,
-   n_bins ∈ {160, 10,240, 1,310,720}), four measures: contingency and Θ_PR
-   bit-equal, SCE/LCE/CCE within rtol=1e-5 and atol = 1e-6·max|plain|
-   (within-tile sum order; relative, because the scaled CCE and LCE are
-   ~1e-8 and below at these shapes, so an absolute 1e-6 would pass zeros).
-   Each row prints max|plain| and the error relative to it.  CUDA-event times of kernel, plain version and, for the
-   contingency, one ``index_put_(accumulate=True)`` call (a yardstick the
-   port never calls), beside the bound: the larger of bytes moved once over
-   3.35 TB/s and operations over 67 TFLOP/s (H100 SXM float32, non-tensor);
+   n_bins ∈ {160, 10,240, 1,310,720} with class ids r drawn from
+   [0, n_bins / V)), four measures: contingency and Θ_PR bit-equal,
+   SCE/LCE/CCE within rtol=1e-5 and atol = 1e-6·max|plain| (within-tile sum
+   order; relative, because the scaled CCE and LCE are ~1e-8 and below at
+   these shapes, so an absolute 1e-6 would pass zeros).  Then the sweep alone
+   at n_bins = 1,310,720 with r drawn from [0, K), K ∈ {1, 1,024}: the
+   ladder-off shape of the first greedy iterations, where every granule lies
+   in one or a few 256-bin tiles.  Every sweep row is also run twice (equal
+   bits), on the skewed rows at the rung n_bins = 10,240 (equal bits), and
+   its Θ_PR equals the fused kernel's bit for bit where both run.  Each
+   row prints max|plain| and the error relative to it.  CUDA-event times of
+   kernel, plain version and, for the contingency, one
+   ``index_put_(accumulate=True)`` call (a yardstick the port never calls),
+   beside the bound: the larger of bytes moved once over 3.35 TB/s and
+   operations over 67 TFLOP/s (H100 SXM float32, non-tensor);
 4. main path: ``python -m repro_torch.launch.reduce --dataset kdd99
    --max-rows 5000000 --device cuda`` in-process with ``--backend sweep``
    (PR and SCE), ``fused``, ``pallas`` and ``segment`` (PR, the plain
@@ -34,9 +42,11 @@ The LM serving slice adds:
 
 6. the flash-attention and RWKV6 kernels vs their plain versions on the
    card: flash at tinyllama-1.1b prefill shapes (B = 1, 32 query heads over
-   4 kv heads, S ∈ {1,024, 2,048}, Dh 64, causal; in bf16 each element
-   within one output rounding, |d| <= 1e-2·|plain| + 2e-3, and the same
-   inputs in f32 within rtol = atol = 2e-5), RWKV6 at rwkv6-3b shapes
+   4 kv heads, S ∈ {1,024, 2,048}, Dh 64, causal) and at mistral-nemo-12b's
+   heads (32 over 8, Dh 128, S = 2,048): bf16 inputs through the
+   tensor-core kernel, each element within one output rounding, |d| <=
+   1e-2·|plain| + 2e-3, and the same inputs in f32 through the f32 kernel
+   within rtol = atol = 2e-5, both timed; RWKV6 at rwkv6-3b shapes
    (B = 1, H = 40, T ∈ {1,024, 2,048}, D = 64, f32) and a decode step
    (B = 4, T = 1), within rtol = atol = 1e-4.  CUDA-event times of kernel, plain version and, for flash,
    one ``scaled_dot_product_attention`` call (a yardstick the port never
@@ -50,15 +60,17 @@ The LM serving slice adds:
    ``cache_len`` 2,048.  Every request completes with its budget, no logit
    is NaN, and ``flash_attention`` (tinyllama) / ``rwkv6`` (rwkv6-3b) were
    launched (counts set to 0 just before each model's run, read just
-   after).  Prints prefill ms, decode-step ms, tokens/s and peak memory;
+   after); every tinyllama prefill went through the tensor-core flash
+   kernel.  Prints prefill ms, decode-step ms, tokens/s and peak memory;
 8. a cross-check at full width with the depth cut to 2 layers, f32 with
    TF32 off: the same parameters served on the card and on the CPU give
    equal tokens, and prefill logits agree within 1e-4·max|logit| (the
    CPU's top-2 gap is printed where a token differs).
 
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
-1,310,720, Θ_PR, launches from phase 4; flash at S = 2,048 and RWKV6 at
-T = 2,048, launches from phase 7.
+1,310,720 with uniform r, Θ_PR, launches from phase 4; flash (the bf16
+tensor-core kernel) at S = 2,048, Dh 64, and RWKV6 at T = 2,048, launches
+from phase 7.
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ PEAK_F32_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SHAPE = dict(G=131_072, n_dec=23, V=10, nc=41)
 N_BINS = (160, 10_240, 1_310_720)
+SKEWED_K = (1, 1_024)   # sweep-only rows at the top n_bins: r drawn from [0, K)
 DELTAS = ("PR", "SCE", "LCE", "CCE")
 REPLACES = {
     "contingency": "src/repro/kernels/contingency/kernel.py:76",
@@ -92,10 +105,13 @@ SOURCES = {
     "contingency": "src/repro_torch/kernels/contingency/csrc/contingency.cu",
     "fused_theta": "src/repro_torch/kernels/contingency/csrc/fused_theta.cu",
     "sweep_theta": "src/repro_torch/kernels/contingency/csrc/sweep_theta.cu",
-    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "rwkv6": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
 }
-FLASH_SEQ = (1_024, 2_048)          # tinyllama prefill: B 1, Hq 32 / Hkv 4, Dh 64
+FLASH_CASES = (  # (S, Hq, Hkv, Dh), B 1, causal
+    (1_024, 32, 4, 64), (2_048, 32, 4, 64),    # tinyllama-1.1b prefill
+    (2_048, 32, 8, 128),                       # mistral-nemo-12b heads
+)
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3   # per element: one bf16 rounding
 FLASH_F32_TOL = 2e-5
 RWKV_SHAPES = ((1, 1_024), (1, 2_048), (4, 1))   # rwkv6-3b (B, T): H 40, D 64
@@ -147,12 +163,13 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def operands(torch, n_bins: int, dev):
+def operands(torch, n_bins: int, dev, K=None):
     """Main-path operands from a seed: ~24% padding slots (w = 0, r = 0), as
-    kdd99's 99,741 live granules in a 131,072-slot capacity."""
+    kdd99's 99,741 live granules in a 131,072-slot capacity; class ids r
+    drawn from [0, K), by default K = n_bins / V."""
     G, n_dec, V, nc = SHAPE["G"], SHAPE["n_dec"], SHAPE["V"], SHAPE["nc"]
-    gen = torch.Generator().manual_seed(n_bins)
-    K = n_bins // V
+    gen = torch.Generator().manual_seed(n_bins if K is None else n_bins + K)
+    K = n_bins // V if K is None else K
     r = torch.randint(0, K, (G,), generator=gen, dtype=torch.int32)
     x_t = torch.randint(0, V, (nc, G), generator=gen, dtype=torch.int32)
     d = torch.randint(0, n_dec, (G,), generator=gen, dtype=torch.int32)
@@ -164,85 +181,103 @@ def operands(torch, n_bins: int, dev):
     return [t.to(dev) for t in (x_t, r, d, w, packed)]
 
 
+def theta_row(torch, name, kern, plain, delta, nbytes, nc, G, reps, plain_reps, **at) -> dict:
+    """One Θ kernel vs its plain version: Θ_PR bit-equal, the other measures
+    within rtol = 1e-5, atol = 1e-6·max|plain|; times and the bound."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and (
+        torch.equal(got, want) if delta == "PR"
+        else scale > 0 and torch.allclose(got, want, rtol=1e-5, atol=1e-6 * scale))
+    if not ok:
+        raise AssertionError(f"{name} != plain for {delta} at {at}: max err {err}, "
+                             f"max |plain| {scale}")
+    # the work this data needs: one add per live granule and θ' of at most
+    # one (row, decision) cell per granule (~4 flops)
+    b_ms, b_by = bound(nbytes, 5 * nc * G)
+    return dict(kernel=name, **at, delta=delta, max_abs_err=err, max_abs_plain=scale,
+                max_rel_err=err / scale if scale else 0.0, ms=time_ms(torch, kern, reps),
+                plain_ms=time_ms(torch, plain, plain_reps), library_ms=None,
+                bound_ms=b_ms, bound_by=b_by), got
+
+
 def phase_kernels(torch, ops, ref, card: str) -> dict:
     """Each kernel vs its plain version at the main-path shapes; times."""
     dev = torch.device("cuda")
     G, n_dec, V, nc = SHAPE["G"], SHAPE["n_dec"], SHAPE["V"], SHAPE["nc"]
     rows = []
-    for n_bins in N_BINS:
-        x_t, r, d, w, packed = operands(torch, n_bins, dev)
+    cases = [(n_bins, None) for n_bins in N_BINS] + [(N_BINS[-1], k) for k in SKEWED_K]
+    for n_bins, skew in cases:
+        x_t, r, d, w, packed = operands(torch, n_bins, dev, skew)
+        K = n_bins // V if skew is None else skew
         n = torch.tensor(float(w.sum()), device=dev)
         big = n_bins > 100_000
         reps, plain_reps = (5, 3) if big else (50, 10)
 
-        # contingency: bit-equal
-        got = ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec)
-        want = ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        c_scale = float(want.max())
-        if not torch.equal(got, want) or c_scale <= 0:
-            raise AssertionError(f"contingency != plain at n_bins={n_bins} (max err {err})")
-        del got, want
-        keep = w[None, :].expand(nc, G) != 0
-        c_idx = torch.arange(nc, device=dev)[:, None].expand(nc, G)[keep]
-        p_idx = packed.to(torch.int64)[keep]
-        d_idx = d.to(torch.int64)[None, :].expand(nc, G)[keep]
-        w_val = w[None, :].expand(nc, G)[keep]
+        if skew is None:  # contingency: bit-equal
+            got = ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec)
+            want = ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            c_scale = float(want.max())
+            if not torch.equal(got, want) or c_scale <= 0:
+                raise AssertionError(f"contingency != plain at n_bins={n_bins} (max err {err})")
+            del got, want
+            keep = w[None, :].expand(nc, G) != 0
+            c_idx = torch.arange(nc, device=dev)[:, None].expand(nc, G)[keep]
+            p_idx = packed.to(torch.int64)[keep]
+            d_idx = d.to(torch.int64)[None, :].expand(nc, G)[keep]
+            w_val = w[None, :].expand(nc, G)[keep]
 
-        def library():
-            torch.zeros((nc, n_bins, n_dec), device=dev).index_put_(
-                (c_idx, p_idx, d_idx), w_val, accumulate=True)
+            def library():
+                torch.zeros((nc, n_bins, n_dec), device=dev).index_put_(
+                    (c_idx, p_idx, d_idx), w_val, accumulate=True)
 
-        nbytes = packed.numel() * 4 + 2 * G * 4 + nc * n_bins * n_dec * 4
-        b_ms, b_by = bound(nbytes, nc * G)
-        rows.append(dict(
-            kernel="contingency", n_bins=n_bins, delta=None, max_abs_err=err,
-            max_abs_plain=c_scale, max_rel_err=err / c_scale,
-            ms=time_ms(torch, lambda: ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec), reps),
-            plain_ms=time_ms(torch, lambda: ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec), plain_reps),
-            library_ms=time_ms(torch, library, plain_reps),
-            bound_ms=b_ms, bound_by=b_by))
-        del c_idx, p_idx, d_idx, w_val, keep
-        torch.cuda.empty_cache()
+            nbytes = packed.numel() * 4 + 2 * G * 4 + nc * n_bins * n_dec * 4
+            b_ms, b_by = bound(nbytes, nc * G)
+            rows.append(dict(
+                kernel="contingency", n_bins=n_bins, K=K, delta=None, max_abs_err=err,
+                max_abs_plain=c_scale, max_rel_err=err / c_scale,
+                ms=time_ms(torch, lambda: ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec), reps),
+                plain_ms=time_ms(torch, lambda: ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec), plain_reps),
+                library_ms=time_ms(torch, library, plain_reps),
+                bound_ms=b_ms, bound_by=b_by))
+            del c_idx, p_idx, d_idx, w_val, keep
+            torch.cuda.empty_cache()
 
         for delta in DELTAS:
-            for name in ("fused_theta", "sweep_theta"):
-                if name == "fused_theta":
-                    def kern(delta=delta):
-                        return ops.fused_theta(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
+            pr = {}
+            if skew is None:
+                row, pr["fused"] = theta_row(
+                    torch, "fused_theta",
+                    lambda: ops.fused_theta(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec),
+                    lambda: ref.fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec),
+                    delta, packed.numel() * 4 + 2 * G * 4 + nc * 4, nc, G, reps, plain_reps,
+                    n_bins=n_bins, K=K)
+                rows.append(row)
 
-                    def plain(delta=delta):
-                        return ref.fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
-                    nbytes = packed.numel() * 4 + 2 * G * 4 + nc * 4
-                else:
-                    def kern(delta=delta):
-                        return ops.sweep_theta(x_t, r, d, w, n, delta=delta, v_max=V, n_bins=n_bins, n_dec=n_dec)
+            def sweep(nb=n_bins, delta=delta):
+                return ops.sweep_theta(x_t, r, d, w, n, delta=delta, v_max=V, n_bins=nb, n_dec=n_dec)
 
-                    def plain(delta=delta):
-                        return ref.sweep_theta_ref(x_t, r, d, w, n, delta=delta, v_max=V, n_bins=n_bins, n_dec=n_dec)
-                    nbytes = x_t.numel() * 4 + 3 * G * 4 + nc * 4
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                ok = bool(torch.isfinite(got).all()) and (
-                    torch.equal(got, want) if delta == "PR"
-                    else scale > 0 and torch.allclose(got, want, rtol=1e-5,
-                                                      atol=1e-6 * scale))
-                if not ok:
-                    raise AssertionError(
-                        f"{name} != plain for {delta} at n_bins={n_bins}: "
-                        f"max err {err}, max |plain| {scale}")
-                # the work this data needs: one add per live granule and θ' of
-                # at most one (row, decision) cell per granule (~4 flops)
-                b_ms, b_by = bound(nbytes, 5 * nc * G)
-                rows.append(dict(
-                    kernel=name, n_bins=n_bins, delta=delta, max_abs_err=err,
-                    max_abs_plain=scale, max_rel_err=err / scale if scale else 0.0,
-                    ms=time_ms(torch, kern, reps),
-                    plain_ms=time_ms(torch, plain, plain_reps),
-                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            row, got = theta_row(
+                torch, "sweep_theta", sweep,
+                lambda: ref.sweep_theta_ref(x_t, r, d, w, n, delta=delta, v_max=V, n_bins=n_bins, n_dec=n_dec),
+                delta, x_t.numel() * 4 + 3 * G * 4 + nc * 4, nc, G, 20, plain_reps,
+                n_bins=n_bins, K=K)
+            # the same bits on a second run, at a smaller rung >= K·V, and
+            # (Θ_PR) from the fused kernel
+            row["same_bits_again"] = torch.equal(got, sweep())
+            if K * V <= N_BINS[1] < n_bins:
+                row["same_bits_at_rung"] = torch.equal(got, sweep(N_BINS[1]))
+            if delta == "PR" and "fused" in pr:
+                row["same_bits_as_fused"] = torch.equal(got, pr["fused"])
+            if not all(row.get(k, True) for k in ("same_bits_again", "same_bits_at_rung",
+                                                  "same_bits_as_fused")):
+                raise AssertionError(f"sweep_theta bits differ for {delta} at n_bins={n_bins}, "
+                                     f"K={K}: {row}")
+            rows.append(row)
         del x_t, r, d, w, packed
         torch.cuda.empty_cache()
     for row in rows:
@@ -326,12 +361,16 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False    # the f32 plain versions
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = []
-    for s in FLASH_SEQ:
-        b, hq, hkv, dh = 1, 32, 4, 64
+    for s, hq, hkv, dh in FLASH_CASES:
+        b = 1
         q = torch.randn((b, hq, s, dh), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
+        fa.reset_launch_counts()
         got = fa.flash_attention(q, k, v, causal=True)
+        if fa.launch_counts() != {"flash_attention": 1, "flash_attention_tc": 1}:
+            raise AssertionError(f"bf16 flash at Dh {dh} did not take the tensor-core kernel: "
+                                 f"{fa.launch_counts()}")
         want = fa.attention_ref(q, k, v, causal=True)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -339,31 +378,34 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
         # bf16: one rounding of the same f32 value, element by element
         over = float((diff - (FLASH_BF16_RTOL * want.float().abs() + FLASH_BF16_ATOL)).max())
         if not (bool(torch.isfinite(got).all()) and over <= 0):
-            raise AssertionError(f"flash_attention != plain at S={s} (bf16): max err {err}, "
-                                 f"{over} past |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}")
-        # f32: the same kernel body and inputs, without the output rounding
+            raise AssertionError(f"flash_attention != plain at S={s}, Dh {dh} (bf16): max err "
+                                 f"{err}, {over} past |d| <= {FLASH_BF16_RTOL}·|plain| + "
+                                 f"{FLASH_BF16_ATOL}")
+        # f32: the same inputs through the f32 CUDA-core kernel
         qf, kf, vf = q.float(), k.float(), v.float()
         got32 = fa.flash_attention(qf, kf, vf, causal=True)
         want32 = fa.attention_ref(qf, kf, vf, causal=True)
         err32 = float((got32 - want32).abs().max())
         if not torch.allclose(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL):
-            raise AssertionError(f"flash_attention != plain at S={s} (f32): max err {err32}")
-        del qf, kf, vf, got32, want32, diff
+            raise AssertionError(f"flash_attention != plain at S={s}, Dh {dh} (f32): max err {err32}")
+        del got32, want32, diff
         pairs = b * s * (s + 1) // 2                       # visible (query, key) pairs
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
         b_ms, b_by = bound(nbytes, 4 * hq * dh * pairs, PEAK_BF16_OPS_PER_S)
         rows.append(dict(
             kernel="flash_attention", shape=dict(B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh,
                                                  dtype="bfloat16", causal=True),
+            path="tensor cores (flash_attention_tc.cu)",
             max_abs_err=err, f32_max_abs_err=err32,
             tolerance=(f"bf16 |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}; "
                        f"f32 rtol = atol = {FLASH_F32_TOL}"),
             ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20),
+            f32_kernel_ms=time_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True), 5),
             plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v, causal=True), 5),
             library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 20),
             bound_ms=b_ms, bound_by=b_by))
-        del q, k, v, got, want
+        del q, k, v, qf, kf, vf, got, want
     for b, t in RWKV_SHAPES:
         h, d = 40, 64
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
@@ -424,6 +466,8 @@ def phase_serving(torch, lm, card: str) -> dict:
                 raise AssertionError(f"{arch}: request {r.rid} ended with {r.output}")
         if launches[kernel] <= 0:
             raise AssertionError(f"{arch}: kernel {kernel} was not launched while serving")
+        if kernel == "flash_attention" and launches["flash_attention_tc"] != launches[kernel]:
+            raise AssertionError(f"{arch}: a prefill left the tensor-core flash kernel: {launches}")
         if not bool(torch.stack(finite).all()):
             raise AssertionError(f"{arch}: a prefill or decode step gave a non-finite logit")
         n_new = sum(len(r.output) for r in done)
@@ -590,7 +634,8 @@ def main() -> None:
     kernels = []
     for name in ("contingency", "fused_theta", "sweep_theta"):
         rows = [r for r in report["kernels_vs_plain"]["rows"] if r["kernel"] == name]
-        pick = next(r for r in rows if r["n_bins"] == top and r["delta"] in (None, "PR"))
+        pick = next(r for r in rows if r["n_bins"] == top and r["K"] == top // SHAPE["V"]
+                    and r["delta"] in (None, "PR"))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -602,15 +647,16 @@ def main() -> None:
             "library_ms": pick["library_ms"],
             "at": {"n_bins": top, "delta": pick["delta"], **SHAPE},
         })
-    for name, key, top in (("flash_attention", "S", FLASH_SEQ[-1]),
-                           ("rwkv6", "T", RWKV_SHAPES[1][1])):
+    for name, pick_shape in (("flash_attention", dict(S=FLASH_CASES[1][0], Dh=FLASH_CASES[1][3])),
+                             ("rwkv6", dict(T=RWKV_SHAPES[1][1], B=1))):
         rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == name]
-        pick = next(r for r in rows if r["shape"][key] == top and r["shape"]["B"] == 1)
+        pick = next(r for r in rows if all(r["shape"][k] == v for k, v in pick_shape.items()))
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": (report["serving"]["tinyllama-1.1b"] if name == "flash_attention"
-                         else report["serving"]["rwkv6-3b"])["launches"][name],
+            "launches": (report["serving"]["tinyllama-1.1b"]["launches"]["flash_attention_tc"]
+                         if name == "flash_attention"
+                         else report["serving"]["rwkv6-3b"]["launches"][name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": pick["ms"], "plain_ms": pick["plain_ms"],
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],

@@ -257,6 +257,25 @@ def resolve_granularity(
         build_granularity(x, d, n_dec=n_dec, v_max=v_max, exact=exact))
 
 
+def _check_codes(gran: Granularity) -> None:
+    """Every live granule's attribute codes lie in ``[0, v_max)``.
+
+    A caller may pass its own ``v_max``.  One below the codes packs two
+    (class, value) pairs into one key on every backend, and the sweep kernel
+    on the card, which reads only the keys of a tile's own classes, would
+    drop the keys past a class's range.  Checked once a run: one min/max
+    over the table and one sync.
+    """
+    if gran.capacity == 0 or gran.n_attrs == 0:
+        return
+    x = torch.where(gran.valid[:, None], gran.x, 0)
+    lo, hi = (int(v) for v in torch.aminmax(x))
+    if lo < 0 or hi >= gran.v_max:
+        raise ValueError(
+            f"attribute codes must lie in [0, v_max={gran.v_max}); the table "
+            f"holds codes in [{lo}, {hi}]")
+
+
 def _validate_warm_start(warm_start, n_attrs: Optional[int]) -> List[int]:
     """Canonicalize + validate a warm-start prefix (integral, unique, in range).
 
@@ -335,6 +354,7 @@ def plar_reduce(
     gran = resolve_granularity(
         x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
         exact=exact, chunk_rows=chunk_rows, device=device)
+    _check_codes(gran)
     dev = gran.device
 
     A = gran.n_attrs

@@ -18,8 +18,10 @@ Flags by family:
 * ``contingency`` (contingency, fused Θ, sweep Θ): ``--fmad=false`` keeps
   every product and sum of the θ' epilogues rounded on its own, as the plain
   PyTorch version's ops are.
-* ``flash_attention`` and ``rwkv6``: the default contraction to FMA; their
-  plain versions are compared within a tolerance, not bit for bit.
+* ``flash_attention`` (f32 and bf16 on the CUDA cores, and the bf16
+  tensor-core kernel ``flash_attention_tc``) and ``rwkv6``: the default
+  contraction to FMA; their plain versions are compared within a
+  tolerance, not bit for bit.
 
 ``--use_fast_math`` is never passed: ``logf`` and ``expf`` stay accurate.
 """
@@ -67,6 +69,7 @@ KERNELS: Dict[str, Kernel] = {
     "fused_theta": Kernel(source="fused_theta.cu", **_CONTINGENCY),
     "sweep_theta": Kernel(source="sweep_theta.cu", **_CONTINGENCY),
     "flash_attention": Kernel(family="flash_attention", source="flash_attention.cu"),
+    "flash_attention_tc": Kernel(family="flash_attention", source="flash_attention_tc.cu"),
     "rwkv6": Kernel(family="rwkv6", source="rwkv6.cu"),
 }
 

@@ -37,6 +37,7 @@ _ARGTYPES = {
     "fused_theta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sweep_theta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+_SWEEP_WORKSPACE_ARGTYPES = [_I, _I, _I, _I, _I]
 
 
 def reset_launch_counts() -> None:
@@ -72,7 +73,7 @@ def _check_delta(delta: str) -> int:
 
 
 def _check_smem(name: str, n_dec: int, device: torch.device) -> None:
-    need = _TILE * n_dec * 4
+    need = _TILE * n_dec * 4  # one 256-bin tile's histogram
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
     if need > limit:
@@ -109,8 +110,8 @@ def contingency(
 
 
 def _theta_tiles(name: str, operands, d, w, *, nc: int, g: int, n_bins: int,
-                 n_dec: int, delta: str, extra_ints=()):
-    """Launch a tile-Θ kernel: allocate partials/raw, call, count."""
+                 n_dec: int, delta: str):
+    """Launch the fused-Θ tile kernel: allocate partials/raw, call, count."""
     code = _check_delta(delta)
     if n_bins < 1:
         raise ValueError(f"{name}: n_bins must be >= 1, got {n_bins}")
@@ -123,7 +124,7 @@ def _theta_tiles(name: str, operands, d, w, *, nc: int, g: int, n_bins: int,
     with torch.cuda.device(dev):
         lib, fn = _launcher(name)
         err = fn(*[t.data_ptr() for t in operands], d.data_ptr(), w.data_ptr(),
-                 partial.data_ptr(), raw.data_ptr(), nc, g, *extra_ints,
+                 partial.data_ptr(), raw.data_ptr(), nc, g,
                  n_bins, n_dec, code, _stream(dev))
         build.check(lib, err, f"{name} kernel launch")
     LAUNCHES[name] += 1
@@ -173,7 +174,16 @@ def sweep_theta(
     """Θ(D|R∪{a})[c] from the read-once slab operands (DESIGN.md §5.3).
 
     Semantics: ``fused_theta(r_ids[None]·V + x_t, ...)`` with the pack done
-    in the kernel; ``n_bins`` may be any ladder rung ≥ K·V.
+    in the kernel; ``n_bins`` may be any ladder rung ≥ K·V.  ``x_t`` must
+    hold attribute values in ``[0, v_max)``: the card kernel reads only the
+    keys of a tile's own classes, so a value past ``v_max`` would be counted
+    by the plain version and dropped here (``plar_reduce`` checks the table
+    once a run).  On the card the granules are
+    ordered by the tile bucket of their class first, so that each 256-bin
+    tile reads only its own segment (``csrc/sweep_theta.cu``; the plain
+    version of that ordering is :func:`.ref.tile_segments`).  The ordering
+    is scratch of the launch: it lives in one workspace tensor the wrapper
+    allocates.
     """
     if _on_cpu("sweep_theta", x_t=x_t, r_ids=r_ids, d=d, w=w):
         return sweep_theta_ref(x_t, r_ids, d, w, n, delta=delta, v_max=v_max,
@@ -184,7 +194,25 @@ def sweep_theta(
     nc, g = x_t.shape
     if r_ids.shape != (g,) or d.shape != (g,) or w.shape != (g,):
         raise ValueError(f"sweep_theta: r_ids/d/w must be [{g}]")
-    raw = _theta_tiles("sweep_theta", (x_t, r_ids), d, w, nc=nc, g=g,
-                       n_bins=n_bins, n_dec=n_dec, delta=delta,
-                       extra_ints=(v_max,))
+    code = _check_delta(delta)
+    if n_bins < 1 or v_max < 1:
+        raise ValueError(f"sweep_theta: n_bins and v_max must be >= 1, got {n_bins}, {v_max}")
+    dev = d.device
+    _check_smem("sweep_theta", n_dec + 1, dev)  # a histogram row and a row value a bin
+    raw = torch.empty((nc,), dtype=torch.float32, device=dev)
+    if nc == 0:
+        return theta_scale(delta, raw, n)
+    with torch.cuda.device(dev):
+        lib, fn = _launcher("sweep_theta")
+        size = lib.sweep_theta_workspace_bytes
+        if size.argtypes is None:
+            size.argtypes = _SWEEP_WORKSPACE_ARGTYPES
+            size.restype = ctypes.c_size_t
+        workspace = torch.empty((size(nc, g, v_max, n_bins, n_dec),), dtype=torch.uint8,
+                                device=dev)
+        err = fn(x_t.data_ptr(), r_ids.data_ptr(), d.data_ptr(), w.data_ptr(),
+                 workspace.data_ptr(), raw.data_ptr(), nc, g, v_max, n_bins, n_dec, code,
+                 _stream(dev))
+        build.check(lib, err, "sweep_theta kernel launch")
+    LAUNCHES["sweep_theta"] += 1
     return theta_scale(delta, raw, n)

@@ -12,6 +12,12 @@ wrapper in :mod:`.ops` runs for a tensor on the CPU.  ``chip_smoke.py`` and
   within each 256-bin tile, the tile partials added in ascending order — the
   kernels' own order, so Θ_PR is bit-equal and the other measures differ
   only by the order of the within-tile sum.
+* :func:`tile_segments` / :func:`sweep_theta_segments_ref` — the plain
+  version of the sweep kernel's schedule: live granules ordered by the tile
+  bucket of their class, each 256-bin tile reading only the segment of the
+  classes it holds.  Its
+  Θ is the same bits as :func:`sweep_theta_ref`'s, since every tile's
+  contingency is the same integer-valued f32 counts.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 from repro_torch.core import measures
 from repro_torch.core.plan import LADDER_TILE, theta_tiled_raw
 
-__all__ = ["contingency_ref", "fused_theta_ref", "sweep_theta_ref"]
+__all__ = ["tile_segments", "contingency_ref", "fused_theta_ref", "sweep_theta_ref",
+           "sweep_theta_segments_ref"]
 
 
 def contingency_ref(
@@ -73,3 +80,75 @@ def sweep_theta_ref(
     """Pack explicitly (``p = r·V + v``), then :func:`fused_theta_ref`."""
     packed = r_ids[None, :] * v_max + x_t
     return fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
+
+
+def tile_segments(
+    r_ids: torch.Tensor,  # [G] int32 — class ids (-1: padding)
+    d: torch.Tensor,      # [G] int32
+    w: torch.Tensor,      # [G] float32
+    *,
+    v_max: int,
+    n_bins: int,
+    n_dec: int,
+):
+    """The sweep kernel's ordering: ``(perm, start, seg_begin, seg_end)``.
+
+    ``perm`` lists the live granules (w ≠ 0, class r in
+    ``[0, ceil(n_bins / V))``, d in ``[0, n_dec)``) ordered, stably, by the
+    bucket of their class: ``2·⌊rV/256⌋ + s`` with ``s = 1`` when the class's
+    keys ``[rV, rV + V)`` run into the next 256-bin tile.  Bucket k holds
+    ``perm[start[k]:start[k + 1]]``.  Tile t's segment is the buckets
+    ``2(t − S) + 1 … 2t + 1`` (``S = ⌈V/256⌉``, clamped at 0), that is
+    ``perm[seg_begin[t]:seg_end[t]]``: for V ≤ 256 exactly the granules whose
+    class has a key in the tile — a class straddling two tiles is in both
+    segments — and for V > 256 those and some of the classes before.  Keys
+    p = r·V + x with x in ``[0, V)`` stay in their class's range, so a
+    tile's segment holds every granule whose key it owns.
+    """
+    n_cls = -(-n_bins // v_max)
+    n_tiles = -(-n_bins // LADDER_TILE)
+    span = -(-v_max // LADDER_TILE)
+    r = r_ids.to(torch.int64)
+    live = (r >= 0) & (r < n_cls) & (d >= 0) & (d < n_dec) & (w != 0)
+    first = r * v_max // LADDER_TILE
+    straddles = (r * v_max + v_max - 1) // LADDER_TILE > first
+    key = torch.where(live, 2 * first + straddles, torch.full_like(r, 2 * n_tiles))
+    order = torch.sort(key, stable=True).indices
+    perm = order[:int(live.sum())]
+    start = torch.searchsorted(key[perm], torch.arange(2 * n_tiles + 1, device=r.device))
+    t = torch.arange(n_tiles, device=r.device)
+    return perm, start, start[torch.clamp(2 * (t - span) + 1, min=0)], start[2 * t + 2]
+
+
+def sweep_theta_segments_ref(
+    x_t: torch.Tensor,      # [nc, G] int32, values in [0, v_max)
+    r_ids: torch.Tensor,    # [G]     int32 (-1: padding)
+    d: torch.Tensor,        # [G]     int32
+    w: torch.Tensor,        # [G]   float32 (0 for padding granules)
+    n,                      # |U|
+    *,
+    delta: str,
+    v_max: int,
+    n_bins: int,
+    n_dec: int,
+) -> torch.Tensor:
+    """Θ through the kernel's schedule: each tile's contingency is built from
+    its own segment only (an empty tile builds none), then the same
+    tile-ordered θ' epilogue as :func:`fused_theta_ref`."""
+    nc = x_t.shape[0]
+    perm, _, seg_begin, seg_end = tile_segments(r_ids, d, w, v_max=v_max,
+                                                n_bins=n_bins, n_dec=n_dec)
+    cont = torch.zeros((nc, n_bins, n_dec), dtype=torch.float32, device=x_t.device)
+    c_idx = torch.arange(nc, device=x_t.device)[:, None]
+    for t, (b, e) in enumerate(zip(seg_begin.tolist(), seg_end.tolist())):
+        if b == e:
+            continue
+        lo, hi = t * LADDER_TILE, min((t + 1) * LADDER_TILE, n_bins)
+        g = perm[b:e]
+        p = r_ids[g].to(torch.int64)[None, :] * v_max + x_t[:, g].to(torch.int64)
+        keep = (p >= lo) & (p < hi)
+        dd = d[g].to(torch.int64)[None, :].expand_as(p)
+        ww = w[g].to(torch.float32)[None, :].expand_as(p)
+        cont.index_put_((c_idx.expand_as(p)[keep], p[keep], dd[keep]), ww[keep],
+                        accumulate=True)
+    return measures.theta_scale(delta, theta_tiled_raw(delta, cont, tile=LADDER_TILE), n)

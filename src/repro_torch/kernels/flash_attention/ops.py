@@ -1,13 +1,24 @@
 """Public wrapper of the flash-attention kernel: dispatch on the input's device.
 
 * CPU tensors run the plain PyTorch version (:func:`.ref.attention_ref`).
-* CUDA tensors launch the hand-written CUDA kernel
-  (``csrc/flash_attention.cu``, built at first use by
+* CUDA tensors launch a hand-written CUDA kernel (built at first use by
   :mod:`repro_torch.kernels.build`) on PyTorch's current stream, or raise.
-  There is no fallback to the plain version.
+  The dtype and head width choose the kernel, explicitly:
+
+  - bf16 at head widths :data:`TC_HEAD_DIMS` (64, 128, 256): the tensor-core
+    kernel ``csrc/flash_attention_tc.cu`` (wgmma, TMA; p enters the product
+    with v as two bf16 parts, hi + lo: one bf16 rounding of p, which the
+    TPU kernel's f32 matmul at JAX's default precision makes on the MXU,
+    puts outputs past the port's per-element check);
+  - f32 at every width of :data:`HEAD_DIMS`, and bf16 at 16 and 32: the f32
+    CUDA-core kernel ``csrc/flash_attention.cu``.  f32 never goes to the
+    tensor cores: TF32 would break its 2e-5 agreement with the plain version.
+
+  There is no fallback from one kernel to another or to the plain version.
 
 :data:`LAUNCHES` counts kernel launches (one per launch, nowhere else), so a
-run can show that it went through the kernel.
+run can show that it went through the kernels: ``flash_attention`` counts
+every launch, ``flash_attention_tc`` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -20,17 +31,22 @@ from .. import build
 from ..launching import on_cpu, stream
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "flash_attention", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "flash_attention", "launch_counts",
+           "reset_launch_counts", "takes_tensor_cores"]
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernel's compiled head widths
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's compiled head widths
+TC_HEAD_DIMS = (64, 128, 256)       # the tensor-core kernel's (bf16 only)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -58,6 +74,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
+def takes_tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a CUDA launch of this dtype and head width runs the
+    tensor-core kernel (else the f32 CUDA-core kernel)."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
+
+
+def _launcher(name: str):
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, Sq, Dh]
     k: torch.Tensor,  # [B, Hkv, Skv, Dh]
@@ -79,15 +110,23 @@ def flash_attention(
     if scale is None:
         scale = dh ** -0.5
     out = torch.empty_like(q)
+    tc = takes_tensor_cores(q.dtype, dh)
+    if tc:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} must start 16-byte aligned "
+                                 "(a TMA tensor map's base)")
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, dh)
+    tail = (float(scale), int(bool(causal)), int(window or 0), stream(q.device))
     with torch.cuda.device(q.device):
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_launch
-        if fn.argtypes is None:
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-                 sq, skv, dh, int(q.dtype == torch.bfloat16), float(scale),
-                 int(bool(causal)), int(window or 0), stream(q.device))
+        if tc:
+            lib, fn = _launcher("flash_attention_tc")
+            err = fn(*head, *tail)
+        else:
+            lib, fn = _launcher("flash_attention")
+            err = fn(*head, int(q.dtype == torch.bfloat16), *tail)
         build.check(lib, err, "flash_attention kernel launch")
     LAUNCHES["flash_attention"] += 1
+    if tc:
+        LAUNCHES["flash_attention_tc"] += 1
     return out

@@ -9,6 +9,13 @@ fixture, never at import).  On a machine with a card and ``nvcc``:
 Tolerances: contingency and Θ_PR bit-equal (integer-valued f32 counts);
 SCE/LCE/CCE rtol=1e-5, atol=1e-6·max|plain| (the within-tile sum order
 differs; relative, because the scaled CCE reads ~1e-8 at these shapes).
+
+The sweep kernel orders granules into per-tile segments first; its cases
+cover every granule in one class (K = 1, one segment split over several
+CTAs), a few classes, and one class per few granules, at V ∈ {1, 3, 10,
+256}, with padding (r = -1, w = 0), n_bins not a multiple of 256 and
+nc = 1.  Its results are the same bits on every run, at every rung, and
+(Θ_PR) as the fused kernel's.
 """
 import numpy as np
 import pytest
@@ -38,6 +45,7 @@ def _operands(dev, seed, nc=9, g=5000, v=10, k=300, m=23, pad=400):
     w = torch.randint(1, 50, (g,), generator=gen).to(torch.float32)
     r[-pad:] = -1                                      # padding granules
     w[-pad:] = 0.0
+    w[: pad // 2] = 0.0                                # zero-weight slots with a class
     return [t.to(dev) for t in (x_t, r, d, w)]
 
 
@@ -75,16 +83,50 @@ def test_theta_kernels_match_plain(cuda_device, delta, n_bins):
     _close(delta, got_f, want)
 
 
-def test_sweep_kernel_rung_invariant_and_deterministic(cuda_device):
-    """Bitwise equal at every rung ≥ K·V, and from one run to the next."""
-    x_t, r, d, w = _operands(cuda_device, 7, k=100)
+@pytest.mark.parametrize("k", [100, 1])
+def test_sweep_kernel_rung_invariant_and_deterministic(cuda_device, k):
+    """Bitwise equal at every rung ≥ K·V, and from one run to the next; K = 1
+    is the skewed first greedy iteration (every granule in tile 0, its
+    segment split over several CTAs at g = 20,000)."""
+    x_t, r, d, w = _operands(cuda_device, 7, k=k, g=20_000 if k == 1 else 5000)
     valid = torch.ones_like(w, dtype=torch.bool)
     for delta in DELTAS:
         outs = [candidate_theta(delta, None, d, w, valid, 1000.0, n_bins=nb, m=23,
                                 backend="sweep", x_t=x_t, r_ids=r, v_max=10)
-                for nb in (1024, 2048, 4096, 4096)]
+                for nb in (1024, 2048, 4096, 4096, 1_310_720)]
         for o in outs[1:]:
             assert torch.equal(o, outs[0])
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+@pytest.mark.parametrize("v", [1, 3, 10, 256])
+@pytest.mark.parametrize("k_of,nc,g", [("one", 5, 30_000), ("few", 1, 3000),
+                                       ("all", 9, 8000)])
+def test_sweep_kernel_on_segments_matches_plain(cuda_device, delta, v, k_of, nc, g):
+    """K = 1 (one segment longer than a CTA's 4,096-granule chunk), K = 7,
+    and K = n_bins / V (a few granules a tile), n_bins = K·V + 37."""
+    k = {"one": 1, "few": 7, "all": max(1, g // 3 // v)}[k_of]
+    n_bins = k * v + 37
+    x_t, r, d, w = _operands(cuda_device, v * 7 + nc, nc=nc, g=g, v=v, k=k)
+    n = float(w.sum())
+    kw = dict(delta=delta, v_max=v, n_bins=n_bins, n_dec=23)
+    before = ops.launch_counts()["sweep_theta"]
+    got = ops.sweep_theta(x_t, r, d, w, n, **kw)
+    again = ops.sweep_theta(x_t, r, d, w, n, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sweep_theta"] == before + 2
+    _close(delta, got, ref.sweep_theta_ref(x_t, r, d, w, n, **kw))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k", [1, 7, 300])
+def test_sweep_equals_fused_on_theta_pr(cuda_device, k):
+    x_t, r, d, w = _operands(cuda_device, 11 + k, k=k, g=12_000)
+    packed = (r[None, :] * 10 + x_t).contiguous()
+    n = float(w.sum())
+    got_s = ops.sweep_theta(x_t, r, d, w, n, delta="PR", v_max=10, n_bins=3000, n_dec=23)
+    got_f = ops.fused_theta(packed, d, w, n, delta="PR", n_bins=3000, n_dec=23)
+    assert torch.equal(got_s, got_f)
 
 
 def test_wrappers_raise_on_bad_operands(cuda_device):
@@ -115,3 +157,19 @@ def test_plar_on_card_matches_cpu(cuda_device, backend):
             np.testing.assert_allclose(rc.theta_history, rp.theta_history, rtol=1e-6, atol=1e-7)
     name = {"sweep": "sweep_theta", "fused": "fused_theta", "pallas": "contingency"}[backend]
     assert ops.launch_counts()[name] > 0
+
+
+def test_plar_on_card_rejects_codes_past_v_max(cuda_device):
+    """A code planted at v_max (a caller's understated v_max) is refused
+    before the sweep kernel runs: the kernel reads only the keys of a tile's
+    own classes and would drop it, where the plain version counts it."""
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 4, (3000, 10)).astype(np.int32)
+    x[1234, 7] = 4
+    d = (x[:, 0] % 3).astype(np.int32)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match=r"codes in \[0, 4\]"):
+        plar_reduce(x, d, v_max=4, backend="sweep", device=cuda_device)
+    assert ops.launch_counts()["sweep_theta"] == 0
+    r = plar_reduce(x, d, v_max=5, backend="sweep", device=cuda_device)
+    assert r.reduct == plar_reduce(x, d, v_max=5, backend="sweep", device="cpu").reduct

@@ -8,7 +8,9 @@ at import).  On a machine with a card and ``nvcc``:
 
 Tolerances: flash attention rtol = atol = 2e-5 in f32 and, in bf16, one
 output rounding per element (rtol 1e-2, atol 2e-3; the JAX kernel tests'
-0.05 would pass a wrong kernel at the long shapes, where |out| is ~0.05);
+0.05 would pass a wrong kernel at the long shapes, where |out| is ~0.05).
+bf16 at head widths 64, 128 and 256 runs the tensor-core kernel, the rest
+the f32 kernel; each test asserts which one a launch took;
 RWKV6 rtol = atol = 1e-4.  Both against the
 kernels' plain versions on the same card.  Served tokens card == CPU, in f32
 with TF32 off.
@@ -18,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
+                                                takes_tensor_cores)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_ref
@@ -37,6 +40,7 @@ FLASH_SHAPES = [  # b, hq, hkv, sq, skv, dh, causal, window
     (1, 4, 4, 1, 160, 64, True, None),
     (1, 32, 4, 1024, 1024, 64, True, None),   # tinyllama prefill, full width
     (1, 8, 1, 300, 300, 256, True, None),     # gemma-2b heads
+    (1, 32, 8, 2048, 2048, 128, True, None),  # mistral-nemo-12b heads, 2,048 tokens
 ]
 RWKV_SHAPES = [  # b, h, t, d
     (2, 2, 64, 16), (1, 3, 128, 32), (2, 1, 33, 8), (1, 2, 256, 64), (1, 1, 7, 4),
@@ -65,16 +69,35 @@ def _qkv(dev, seed, b, hq, hkv, sq, skv, dh, dtype):
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, dh, causal, window, dtype):
     q, k, v = _qkv(cuda_device, sq + dh, b, hq, hkv, sq, skv, dh, dtype)
-    before = flash_ops.launch_counts()["flash_attention"]
+    before = flash_ops.launch_counts()
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_ops.launch_counts()["flash_attention"] == before + 1
+    after = flash_ops.launch_counts()
+    tc = dtype == torch.bfloat16 and dh in (64, 128, 256)
+    assert takes_tensor_cores(dtype, dh) == tc
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_tc"] == before["flash_attention_tc"] + int(tc)
     assert got.dtype == dtype
     want = attention_ref(q, k, v, causal=causal, window=window)
     # bf16: both round the same f32 value once, so each element is within
     # one rounding (|d| <= 1e-2·|want| + 2e-3)
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 2e-3)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_bf16_tile_skip_is_exact_and_masked_rows_are_zero(cuda_device):
+    """The tensor-core kernel on the tile-skip shapes: within one output
+    rounding of the plain version, rows that see no key exactly 0."""
+    for sq, skv in ((200, 456), (100, 64), (130, 130)):
+        q, k, v = _qkv(cuda_device, sq + 1, 1, 4, 2, sq, skv, 64, torch.bfloat16)
+        for window in (48, None):
+            before = flash_ops.launch_counts()["flash_attention_tc"]
+            got = flash_attention(q, k, v, causal=True, window=window)
+            assert flash_ops.launch_counts()["flash_attention_tc"] == before + 1
+            want = attention_ref(q, k, v, causal=True, window=window)
+            torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+    q, k, v = _qkv(cuda_device, 5, 1, 4, 2, 100, 64, 64, torch.bfloat16)
+    assert torch.all(flash_attention(q, k, v, causal=True)[:, :, :36] == 0)
 
 
 def test_flash_tile_skip_is_exact(cuda_device):
@@ -134,6 +157,11 @@ def test_wrappers_reject_bad_operands(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                         v[..., :48].contiguous())
+    qb = q.to(torch.bfloat16)
+    shifted = torch.empty(qb.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    shifted = shifted.view(qb.shape).copy_(qb)   # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, k.to(torch.bfloat16), v.to(torch.bfloat16))
     r = torch.rand((1, 2, 5, 16), device=cuda_device)
     u = torch.rand((2, 16), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):

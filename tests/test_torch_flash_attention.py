@@ -9,6 +9,12 @@ GQA, MQA, sq < skv, window 48, non-causal, Dh 256, sq = 1 at the JAX
 kernel's 64 x 64 blocks, and a 200-row causal case at each of its four block
 shapes.  Tolerances are the JAX tests': rtol = atol = 2e-5 in f32, 0.05 in
 bf16.
+
+The card's bf16 path runs the tensor-core kernel, whose numerics
+``attention_tc_ref`` models (p split into two bf16 parts for the product
+with v, f32 sums).  That model is held against the JAX kernel in bf16 under
+the per-element gate the card tests use, |d| <= 1e-2·|jax| + 2e-3: one
+output rounding.
 """
 import numpy as np
 import pytest
@@ -18,7 +24,8 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention import attention_ref as j_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention, ops
+from repro_torch.kernels.flash_attention import (attention_ref, attention_tc_ref,
+                                                flash_attention, ops)
 
 torch.set_num_threads(1)
 
@@ -92,7 +99,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     ops.reset_launch_counts()
     got = flash_attention(q, k, v, causal=True, window=16)
     assert torch.equal(got, attention_ref(q, k, v, causal=True, window=16))
-    assert ops.launch_counts() == {"flash_attention": 0}
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_tc": 0}
 
 
 def test_wrapper_rejects_mixed_devices_and_bad_window():
@@ -101,3 +108,28 @@ def test_wrapper_rejects_mixed_devices_and_bad_window():
         flash_attention(q, q.to("meta"), q)
     with pytest.raises(ValueError, match="window must be positive"):
         flash_attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", SHAPES)
+def test_tensor_core_numerics_model_matches_jax_bf16(b, hq, hkv, sq, skv, dh, causal, window):
+    """The tensor-core kernel's arithmetic (bf16 q, k, v; S in f32; p as
+    hi + lo bf16 parts for P·V; f32 online softmax over 64-key tiles) is
+    within one bf16 output rounding of the JAX kernel, element by element."""
+    q, k, v = _qkv(b * 10 + sq + dh, b, hq, hkv, sq, skv, dh)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(j_flash(jq, jk, jv, causal=causal, window=window, bq=64, bkv=64),
+                      np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = attention_tc_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert np.all(diff <= 1e-2 * np.abs(want) + 2e-3), float(diff.max())
+
+
+def test_tensor_core_numerics_model_keeps_fully_masked_rows_zero():
+    """sq > skv, causal: rows that see no key write exactly 0, as JAX does."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(12, 1, 2, 1, 100, 36, 64))
+    got = attention_tc_ref(q, k, v, causal=True)
+    assert torch.all(got[:, :, :64] == 0)
+    diff = (got.float() - attention_ref(q, k, v, causal=True).float()).abs()
+    assert torch.all(diff <= 1e-2 * attention_ref(q, k, v, causal=True).float().abs() + 2e-3)

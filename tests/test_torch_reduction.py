@@ -178,6 +178,18 @@ def test_driver_validation():
     assert r.reduct == j_plar(x, d, engine="host").reduct
 
 
+@pytest.mark.parametrize("grc_init", [True, False])
+def test_understated_v_max_is_rejected(grc_init):
+    """A caller's v_max below the table's codes is refused before any Θ is
+    computed (it would pack two (class, value) pairs into one key, and the
+    sweep kernel on the card would drop keys outside a class's range)."""
+    x, d = _random_table(5, 80, 4, vmax=5)
+    kw = dict(backend="sweep", grc_init=grc_init, device=CPU)
+    with pytest.raises(ValueError, match=r"v_max=4\); the table holds codes in \[0, 4\]"):
+        t_plar(x, d, v_max=4, **kw)
+    assert t_plar(x, d, v_max=5, **kw).reduct == t_plar(x, d, **kw).reduct
+
+
 def test_cli_device_cpu(capsys):
     from repro_torch.launch import reduce as cli
 
@@ -211,7 +223,7 @@ def test_port_imports_no_jax_or_repro():
         "    plar_reduce(x, d, delta='SCE', backend=b, device='cpu')\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
-        "import repro_torch.launch.profile_serve\n"
+        "import repro_torch.launch.profile_serve, repro_torch.launch.profile_sweep\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.serving import Request, ServingEngine\n"
