@@ -18,12 +18,13 @@ is missing.  Phases, each printing one JSON line:
    [0, n_bins / V)), four measures: contingency and Θ_PR bit-equal,
    SCE/LCE/CCE within rtol=1e-5 and atol = 1e-6·max|plain| (within-tile sum
    order; relative, because the scaled CCE and LCE are ~1e-8 and below at
-   these shapes, so an absolute 1e-6 would pass zeros).  Then the sweep alone
-   at n_bins = 1,310,720 with r drawn from [0, K), K ∈ {1, 1,024}: the
-   ladder-off shape of the first greedy iterations, where every granule lies
-   in one or a few 256-bin tiles.  Every sweep row is also run twice (equal
-   bits), on the skewed rows at the rung n_bins = 10,240 (equal bits), and
-   its Θ_PR equals the fused kernel's bit for bit where both run.  Each
+   these shapes, so an absolute 1e-6 would pass zeros).  Then the fused and
+   sweep kernels at n_bins = 1,310,720 with r drawn from [0, K), K ∈ {1,
+   1,024}: the ladder-off shape of the first greedy iterations, where every
+   granule lies in one or a few 256-bin tiles.  Every fused and sweep row is
+   also run twice (equal bits), the sweep's skewed rows at the rung n_bins =
+   10,240 (equal bits), and the sweep's Θ_PR equals the fused kernel's bit
+   for bit on every row.  Each
    row prints max|plain| and the error relative to it.  CUDA-event times of
    kernel, plain version and, for the contingency, one
    ``index_put_(accumulate=True)`` call (a yardstick the port never calls),
@@ -46,14 +47,21 @@ The LM serving slice adds:
    heads (32 over 8, Dh 128, S = 2,048): bf16 inputs through the
    tensor-core kernel, each element within one output rounding, |d| <=
    1e-2·|plain| + 2e-3, and the same inputs in f32 through the f32 kernel
-   within rtol = atol = 2e-5, both timed; RWKV6 at rwkv6-3b shapes
-   (B = 1, H = 40, T ∈ {1,024, 2,048}, D = 64, f32) and a decode step
-   (B = 4, T = 1), within rtol = atol = 1e-4.  CUDA-event times of kernel, plain version and, for flash,
-   one ``scaled_dot_product_attention`` call (a yardstick the port never
-   calls), beside the bound: flash 4·Hq·Dh operations per visible (query,
-   key) pair over 989 TFLOP/s (bf16) against q, k, v, o read or written once
-   over 3.35 TB/s; RWKV6 7·D² f32 operations per token and head over
-   67 TFLOP/s against r, k, v, w, o and the state once;
+   within rtol = atol = 2e-5, both timed; RWKV6 at rwkv6-3b shapes (H = 40,
+   D = 64, f32) on both of its paths: the chunked prefill kernel at B = 1,
+   T ∈ {1,000, 1,024, 2,048}, the decode kernel at B ∈ {1, 4}, T = 1; with
+   sigmoid decays, and (one row a path) the model's decays w =
+   exp(−exp(z)), z over [−8, 4]; each within rtol = atol = 1e-4 of the
+   plain version, and each row naming its path (launch counter).  CUDA-event
+   times of kernel, plain version and, for flash, one
+   ``scaled_dot_product_attention`` call (a yardstick the port never calls);
+   for RWKV6 also ``graph_ms``, the device time of a call replayed in a CUDA
+   graph (a decode step's kernel is shorter than the wrapper's host work, so
+   the event time there is the host's).  Beside the bound: flash 4·Hq·Dh
+   operations per visible (query, key) pair over 989 TFLOP/s (bf16) against
+   q, k, v, o read or written once over 3.35 TB/s; RWKV6 5·D² f32
+   operations per token and head (r·S, then w ⊙ S + k·vᵀ) over 67 TFLOP/s
+   against r, k, v, w, o and the state once;
 7. serving at full width and full depth in bf16, tinyllama-1.1b then
    rwkv6-3b, through ``build_model`` and ``ServingEngine.serve``: 8 requests,
    prompt lengths seeded in [256, 1,536], 32 new tokens, ``max_batch`` 4,
@@ -61,16 +69,18 @@ The LM serving slice adds:
    is NaN, and ``flash_attention`` (tinyllama) / ``rwkv6`` (rwkv6-3b) were
    launched (counts set to 0 just before each model's run, read just
    after); every tinyllama prefill went through the tensor-core flash
-   kernel.  Prints prefill ms, decode-step ms, tokens/s and peak memory;
+   kernel, and rwkv6-3b launched both RWKV6 paths (prefills chunked,
+   decode steps row-split).  Prints prefill ms, decode-step ms, tokens/s and peak memory;
 8. a cross-check at full width with the depth cut to 2 layers, f32 with
    TF32 off: the same parameters served on the card and on the CPU give
    equal tokens, and prefill logits agree within 1e-4·max|logit| (the
    CPU's top-2 gap is printed where a token differs).
 
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
-1,310,720 with uniform r, Θ_PR, launches from phase 4; flash (the bf16
-tensor-core kernel) at S = 2,048, Dh 64, and RWKV6 at T = 2,048, launches
-from phase 7.
+1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
+{1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
+RWKV6's prefill at B = 1, T = 2,048 (its top-level numbers) and decode at
+B = 4, T = 1 (``paths``), launches from phase 7.
 """
 from __future__ import annotations
 
@@ -105,6 +115,7 @@ SOURCES = {
     "contingency": "src/repro_torch/kernels/contingency/csrc/contingency.cu",
     "fused_theta": "src/repro_torch/kernels/contingency/csrc/fused_theta.cu",
     "sweep_theta": "src/repro_torch/kernels/contingency/csrc/sweep_theta.cu",
+    "segments": "src/repro_torch/kernels/contingency/csrc/segments.cuh",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "rwkv6": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
 }
@@ -114,7 +125,10 @@ FLASH_CASES = (  # (S, Hq, Hkv, Dh), B 1, causal
 )
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3   # per element: one bf16 rounding
 FLASH_F32_TOL = 2e-5
-RWKV_SHAPES = ((1, 1_024), (1, 2_048), (4, 1))   # rwkv6-3b (B, T): H 40, D 64
+RWKV_CASES = (  # rwkv6-3b (B, T, decays): H 40, D 64
+    (1, 1_000, "sigmoid"), (1, 1_024, "sigmoid"), (1, 2_048, "sigmoid"), (1, 2_048, "model"),
+    (1, 1, "sigmoid"), (4, 1, "sigmoid"), (4, 1, "model"),
+)
 SERVE = dict(requests=8, prompt_min=256, prompt_max=1_536, new_tokens=32,
              max_batch=4, cache_len=2_048)
 CROSS = dict(layers=2, prompts=(300, 150, 17), new_tokens=8, max_batch=2, cache_len=512)
@@ -152,6 +166,29 @@ def time_ms(torch, fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Device time of ``fn`` a call: ``reps`` calls captured in one CUDA
+    graph, replayed once between CUDA events (no host work between them)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                     # warm-up on the capture's side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -248,15 +285,20 @@ def phase_kernels(torch, ops, ref, card: str) -> dict:
             torch.cuda.empty_cache()
 
         for delta in DELTAS:
-            pr = {}
-            if skew is None:
-                row, pr["fused"] = theta_row(
-                    torch, "fused_theta",
-                    lambda: ops.fused_theta(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec),
-                    lambda: ref.fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec),
-                    delta, packed.numel() * 4 + 2 * G * 4 + nc * 4, nc, G, reps, plain_reps,
-                    n_bins=n_bins, K=K)
-                rows.append(row)
+            def fused(delta=delta):
+                return ops.fused_theta(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
+
+            row, fused_got = theta_row(
+                torch, "fused_theta", fused,
+                lambda: ref.fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec),
+                delta, packed.numel() * 4 + 2 * G * 4 + nc * 4, nc, G, reps, plain_reps,
+                n_bins=n_bins, K=K)
+            row["same_bits_again"] = torch.equal(fused_got, fused())
+            if not row["same_bits_again"]:
+                raise AssertionError(f"fused_theta bits differ on a second run for {delta} at "
+                                     f"n_bins={n_bins}, K={K}")
+            rows.append(row)
+            pr = {"fused": fused_got}
 
             def sweep(nb=n_bins, delta=delta):
                 return ops.sweep_theta(x_t, r, d, w, n, delta=delta, v_max=V, n_bins=nb, n_dec=n_dec)
@@ -406,25 +448,34 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
                 q, k, v, is_causal=True, enable_gqa=True), 20),
             bound_ms=b_ms, bound_by=b_by))
         del q, k, v, qf, kf, vf, got, want
-    for b, t in RWKV_SHAPES:
+    for b, t, decays in RWKV_CASES:
         h, d = 40, 64
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
         r, k, v = rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5
-        w, u, s0 = torch.sigmoid(rnd(b, h, t, d)), rnd(h, d) * 0.5, rnd(b, h, d, d) * 0.1
+        if decays == "model":   # models/rwkv.py: w = exp(-exp(w0 + lora)), ~1.8e-24 .. ~0.9997
+            w = torch.exp(-torch.exp(torch.rand((b, h, t, d), generator=gen, device=dev) * 12 - 8))
+        else:
+            w = torch.sigmoid(rnd(b, h, t, d))
+        u, s0 = rnd(h, d) * 0.5, rnd(b, h, d, d) * 0.1
+        rk.reset_launch_counts()
         o, st = rk.rwkv6(r, k, v, w, u, s0)
+        path = next(p for p in ("rwkv6_decode", "rwkv6_chunked") if rk.launch_counts()[p] == 1)
         o_ref, st_ref = rk.rwkv6_ref(r, k, v, w, u, s0)
         torch.cuda.synchronize()
         err = max(float((o - o_ref).abs().max()), float((st - st_ref).abs().max()))
-        if not (torch.allclose(o, o_ref, rtol=1e-4, atol=1e-4)
+        if not (torch.isfinite(o).all() and torch.allclose(o, o_ref, rtol=1e-4, atol=1e-4)
                 and torch.allclose(st, st_ref, rtol=1e-4, atol=1e-4)):
-            raise AssertionError(f"rwkv6 != plain at B={b} T={t}: max err {err}")
+            raise AssertionError(f"rwkv6 != plain at B={b} T={t} ({decays} decays, {path}): "
+                                 f"max err {err}")
         nbytes = 4 * (5 * b * h * t * d + 2 * b * h * d * d + h * d)
-        b_ms, b_by = bound(nbytes, 7 * d * d * t * b * h)
+        b_ms, b_by = bound(nbytes, 5 * d * d * t * b * h)
+        call = lambda: rk.rwkv6(r, k, v, w, u, s0)  # noqa: E731
         rows.append(dict(
-            kernel="rwkv6", shape=dict(B=b, H=h, T=t, D=d, dtype="float32"),
+            kernel="rwkv6", path=path,
+            shape=dict(B=b, H=h, T=t, D=d, dtype="float32"), decays=decays,
             max_abs_err=err, tolerance=1e-4,
-            ms=time_ms(torch, lambda: rk.rwkv6(r, k, v, w, u, s0), 20),
-            plain_ms=time_ms(torch, lambda: rk.rwkv6_ref(r, k, v, w, u, s0), 2),
+            ms=time_ms(torch, call, 20), graph_ms=graph_ms(torch, call, 20),
+            plain_ms=time_ms(torch, lambda: rk.rwkv6_ref(r, k, v, w, u, s0), 2 if t > 1 else 20),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
         del r, k, v, w, u, s0, o, st, o_ref, st_ref
     torch.cuda.empty_cache()
@@ -468,6 +519,10 @@ def phase_serving(torch, lm, card: str) -> dict:
             raise AssertionError(f"{arch}: kernel {kernel} was not launched while serving")
         if kernel == "flash_attention" and launches["flash_attention_tc"] != launches[kernel]:
             raise AssertionError(f"{arch}: a prefill left the tensor-core flash kernel: {launches}")
+        if kernel == "rwkv6" and not (launches["rwkv6_chunked"] > 0 and launches["rwkv6_decode"] > 0
+                                      and launches["rwkv6_chunked"] + launches["rwkv6_decode"]
+                                      == launches["rwkv6"]):
+            raise AssertionError(f"{arch}: serving did not take both RWKV6 paths: {launches}")
         if not bool(torch.stack(finite).all()):
             raise AssertionError(f"{arch}: a prefill or decode step gave a non-finite logit")
         n_new = sum(len(r.output) for r in done)
@@ -636,7 +691,7 @@ def main() -> None:
         rows = [r for r in report["kernels_vs_plain"]["rows"] if r["kernel"] == name]
         pick = next(r for r in rows if r["n_bins"] == top and r["K"] == top // SHAPE["V"]
                     and r["delta"] in (None, "PR"))
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": report["main_path"]["launches"][name],
@@ -646,22 +701,40 @@ def main() -> None:
             "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
             "library_ms": pick["library_ms"],
             "at": {"n_bins": top, "delta": pick["delta"], **SHAPE},
-        })
-    for name, pick_shape in (("flash_attention", dict(S=FLASH_CASES[1][0], Dh=FLASH_CASES[1][3])),
-                             ("rwkv6", dict(T=RWKV_SHAPES[1][1], B=1))):
-        rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == name]
-        pick = next(r for r in rows if all(r["shape"][k] == v for k, v in pick_shape.items()))
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": (report["serving"]["tinyllama-1.1b"]["launches"]["flash_attention_tc"]
-                         if name == "flash_attention"
-                         else report["serving"]["rwkv6-3b"]["launches"][name]),
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": pick["ms"], "plain_ms": pick["plain_ms"],
-            "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
-            "library_ms": pick["library_ms"], "at": pick["shape"],
-        })
+        }
+        if name != "contingency":   # the Θ kernels: the shared segment kernels, and skewed r
+            entry["headers"] = [SOURCES["segments"]]
+            entry["ms_at_K"] = {str(r["K"]): r["ms"] for r in rows
+                                if r["n_bins"] == top and r["delta"] == "PR"}
+        kernels.append(entry)
+    flash_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "flash_attention"]
+    pick = next(r for r in flash_rows
+                if r["shape"]["S"] == FLASH_CASES[1][0] and r["shape"]["Dh"] == FLASH_CASES[1][3])
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": report["serving"]["tinyllama-1.1b"]["launches"]["flash_attention_tc"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": pick["ms"], "plain_ms": pick["plain_ms"],
+        "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
+        "library_ms": pick["library_ms"], "at": pick["shape"],
+    })
+    rwkv_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "rwkv6"]
+    rwkv_launches = report["serving"]["rwkv6-3b"]["launches"]
+    paths = {}
+    for key, path, b, t in (("prefill", "rwkv6_chunked", 1, 2_048), ("decode", "rwkv6_decode", 4, 1)):
+        row = next(r for r in rwkv_rows if r["path"] == path and r["decays"] == "sigmoid"
+                   and r["shape"]["B"] == b and r["shape"]["T"] == t)
+        paths[key] = {"launches": rwkv_launches[path],
+                      **{k: row[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                                             "max_abs_err", "shape")}}
+    kernels.append({
+        "name": "rwkv6", "route": "cuda", "source": SOURCES["rwkv6"],
+        "replaces": REPLACES["rwkv6"], "launches": rwkv_launches["rwkv6"],
+        "max_abs_err": max(r["max_abs_err"] for r in rwkv_rows),
+        **{k: paths["prefill"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "at": paths["prefill"]["shape"], "paths": paths,
+    })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     if args.out:

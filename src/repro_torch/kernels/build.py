@@ -61,7 +61,7 @@ class Kernel:
         return _KERNELS_DIR / self.family / "csrc"
 
 
-_CONTINGENCY = dict(family="contingency", headers=("common.cuh", "theta_tiles.cuh"),
+_CONTINGENCY = dict(family="contingency", headers=("common.cuh", "segments.cuh"),
                     flags=("--fmad=false",))
 # kernel name → how to build it
 KERNELS: Dict[str, Kernel] = {

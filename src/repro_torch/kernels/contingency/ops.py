@@ -37,7 +37,7 @@ _ARGTYPES = {
     "fused_theta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sweep_theta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
-_SWEEP_WORKSPACE_ARGTYPES = [_I, _I, _I, _I, _I]
+_WORKSPACE_ARGTYPES = {"fused_theta": [_I, _I, _I, _I], "sweep_theta": [_I, _I, _I, _I, _I]}
 
 
 def reset_launch_counts() -> None:
@@ -56,6 +56,19 @@ def _launcher(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def _workspace(lib, name: str, *shape: int) -> torch.Tensor:
+    """The launch's scratch: ``{name}_workspace_bytes(*shape)`` bytes."""
+    size = getattr(lib, f"{name}_workspace_bytes")
+    if size.argtypes is None:
+        size.argtypes = _WORKSPACE_ARGTYPES[name]
+        size.restype = ctypes.c_size_t
+    nbytes = size(*shape)
+    if nbytes == 0:
+        raise ValueError(f"{name}: shapes {shape} do not fit the kernel (a 256-bin tile's "
+                         f"histogram past shared memory, or too many granules)")
+    return torch.empty((nbytes,), dtype=torch.uint8, device=torch.cuda.current_device())
 
 
 def _check(name: str, dtypes: Dict[str, torch.dtype], **tensors: torch.Tensor) -> None:
@@ -109,28 +122,6 @@ def contingency(
     return out
 
 
-def _theta_tiles(name: str, operands, d, w, *, nc: int, g: int, n_bins: int,
-                 n_dec: int, delta: str):
-    """Launch the fused-Θ tile kernel: allocate partials/raw, call, count."""
-    code = _check_delta(delta)
-    if n_bins < 1:
-        raise ValueError(f"{name}: n_bins must be >= 1, got {n_bins}")
-    dev = d.device
-    _check_smem(name, n_dec, dev)
-    raw = torch.empty((nc,), dtype=torch.float32, device=dev)
-    if nc == 0:
-        return raw
-    partial = torch.empty((nc, -(-n_bins // _TILE)), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        lib, fn = _launcher(name)
-        err = fn(*[t.data_ptr() for t in operands], d.data_ptr(), w.data_ptr(),
-                 partial.data_ptr(), raw.data_ptr(), nc, g,
-                 n_bins, n_dec, code, _stream(dev))
-        build.check(lib, err, f"{name} kernel launch")
-    LAUNCHES[name] += 1
-    return raw
-
-
 def fused_theta(
     packed: torch.Tensor,  # [nc, G] int32
     d: torch.Tensor,       # [G] int32
@@ -144,7 +135,13 @@ def fused_theta(
     """Θ(D|B∪{a})[c] without materializing the [nc, K, m] contingency.
 
     Semantics: the tile-ordered θ' epilogue over ``contingency(...)``, then
-    the measure's one scale (:func:`fused_theta_ref`).
+    the measure's one scale (:func:`fused_theta_ref`).  ``packed`` may hold
+    any int32 keys; those outside ``[0, n_bins)`` count nothing.  On the
+    card each candidate's live keys are ordered by their 256-bin tile
+    first, so that each tile reads only its own segment
+    (``csrc/fused_theta.cu``; the plain version of that ordering is
+    :func:`.ref.candidate_segments`), in one workspace tensor the wrapper
+    allocates.
     """
     if _on_cpu("fused_theta", packed=packed, d=d, w=w):
         return fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
@@ -154,8 +151,21 @@ def fused_theta(
     nc, g = packed.shape
     if d.shape != (g,) or w.shape != (g,):
         raise ValueError(f"fused_theta: d/w must be [{g}], got {tuple(d.shape)}, {tuple(w.shape)}")
-    raw = _theta_tiles("fused_theta", (packed,), d, w, nc=nc, g=g,
-                       n_bins=n_bins, n_dec=n_dec, delta=delta)
+    code = _check_delta(delta)
+    if n_bins < 1:
+        raise ValueError(f"fused_theta: n_bins must be >= 1, got {n_bins}")
+    dev = d.device
+    _check_smem("fused_theta", n_dec + 1, dev)  # a histogram row and a row value a bin
+    raw = torch.empty((nc,), dtype=torch.float32, device=dev)
+    if nc == 0:
+        return theta_scale(delta, raw, n)
+    with torch.cuda.device(dev):
+        lib, fn = _launcher("fused_theta")
+        workspace = _workspace(lib, "fused_theta", nc, g, n_bins, n_dec)
+        err = fn(packed.data_ptr(), d.data_ptr(), w.data_ptr(), workspace.data_ptr(),
+                 raw.data_ptr(), nc, g, n_bins, n_dec, code, _stream(dev))
+        build.check(lib, err, "fused_theta kernel launch")
+    LAUNCHES["fused_theta"] += 1
     return theta_scale(delta, raw, n)
 
 
@@ -204,12 +214,7 @@ def sweep_theta(
         return theta_scale(delta, raw, n)
     with torch.cuda.device(dev):
         lib, fn = _launcher("sweep_theta")
-        size = lib.sweep_theta_workspace_bytes
-        if size.argtypes is None:
-            size.argtypes = _SWEEP_WORKSPACE_ARGTYPES
-            size.restype = ctypes.c_size_t
-        workspace = torch.empty((size(nc, g, v_max, n_bins, n_dec),), dtype=torch.uint8,
-                                device=dev)
+        workspace = _workspace(lib, "sweep_theta", nc, g, v_max, n_bins, n_dec)
         err = fn(x_t.data_ptr(), r_ids.data_ptr(), d.data_ptr(), w.data_ptr(),
                  workspace.data_ptr(), raw.data_ptr(), nc, g, v_max, n_bins, n_dec, code,
                  _stream(dev))

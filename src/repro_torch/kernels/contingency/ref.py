@@ -18,6 +18,10 @@ wrapper in :mod:`.ops` runs for a tensor on the CPU.  ``chip_smoke.py`` and
   classes it holds.  Its
   Θ is the same bits as :func:`sweep_theta_ref`'s, since every tile's
   contingency is the same integer-valued f32 counts.
+* :func:`candidate_segments` / :func:`fused_theta_segments_ref` — the plain
+  version of the fused kernel's schedule: each candidate's live keys ordered
+  by their 256-bin tile, tile t of candidate c reading only segment (c, t).
+  Its Θ is the same bits as :func:`fused_theta_ref`'s, for the same reason.
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ import torch
 from repro_torch.core import measures
 from repro_torch.core.plan import LADDER_TILE, theta_tiled_raw
 
-__all__ = ["tile_segments", "contingency_ref", "fused_theta_ref", "sweep_theta_ref",
-           "sweep_theta_segments_ref"]
+__all__ = ["candidate_segments", "contingency_ref", "fused_theta_ref",
+           "fused_theta_segments_ref", "sweep_theta_ref", "sweep_theta_segments_ref",
+           "tile_segments"]
 
 
 def contingency_ref(
@@ -151,4 +156,64 @@ def sweep_theta_segments_ref(
         ww = w[g].to(torch.float32)[None, :].expand_as(p)
         cont.index_put_((c_idx.expand_as(p)[keep], p[keep], dd[keep]), ww[keep],
                         accumulate=True)
+    return measures.theta_scale(delta, theta_tiled_raw(delta, cont, tile=LADDER_TILE), n)
+
+
+def candidate_segments(
+    packed: torch.Tensor,  # [nc, G] int32 — any keys
+    d: torch.Tensor,       # [G] int32
+    w: torch.Tensor,       # [G] float32
+    *,
+    n_bins: int,
+    n_dec: int,
+):
+    """The fused kernel's ordering: ``(cand, gran, start)``.
+
+    The live pairs (c, g) — key p = packed[c, g] in ``[0, n_bins)``, d_g in
+    ``[0, n_dec)``, w_g ≠ 0 — ordered, stably, by the bucket
+    ``c·n_tiles + p // 256`` (a counting sort over nc × n_tiles buckets);
+    entry i is candidate ``cand[i]``'s granule ``gran[i]``.  Segment (c, t),
+    the keys of candidate c in tile t and nothing else, is the entries
+    ``start[c·n_tiles + t] : start[c·n_tiles + t + 1]``.  Negative sentinels,
+    keys at or past ``n_bins``, w = 0 and d outside ``[0, n_dec)`` are in no
+    segment, as :func:`contingency_ref` drops them.
+    """
+    nc, g = packed.shape
+    n_tiles = -(-n_bins // LADDER_TILE)
+    p = packed.to(torch.int64)
+    dd = d.to(torch.int64)[None, :]
+    live = (p >= 0) & (p < n_bins) & (dd >= 0) & (dd < n_dec) & (w != 0)[None, :]
+    c_idx = torch.arange(nc, device=packed.device)[:, None]
+    key = torch.where(live, c_idx * n_tiles + p // LADDER_TILE,
+                      torch.full_like(p, nc * n_tiles)).reshape(-1)
+    order = torch.sort(key, stable=True).indices[:int(live.sum())]
+    start = torch.searchsorted(key[order], torch.arange(nc * n_tiles + 1, device=p.device))
+    return order // g, order % g, start
+
+
+def fused_theta_segments_ref(
+    packed: torch.Tensor,  # [nc, G] int32
+    d: torch.Tensor,       # [G]    int32
+    w: torch.Tensor,       # [G]    float32 (0 for padding granules)
+    n,                     # |U|
+    *,
+    delta: str,
+    n_bins: int,
+    n_dec: int,
+) -> torch.Tensor:
+    """Θ through the fused kernel's schedule: each (candidate, tile)
+    contingency is built from its own segment only (an empty segment builds
+    none), then the same tile-ordered θ' epilogue as :func:`fused_theta_ref`."""
+    nc = packed.shape[0]
+    n_tiles = -(-n_bins // LADDER_TILE)
+    cand, gran, start = candidate_segments(packed, d, w, n_bins=n_bins, n_dec=n_dec)
+    cont = torch.zeros((nc, n_bins, n_dec), dtype=torch.float32, device=packed.device)
+    bounds = start.tolist()
+    for s in range(nc * n_tiles):
+        b, e = bounds[s], bounds[s + 1]
+        if b == e:
+            continue
+        c, g = s // n_tiles, gran[b:e]
+        cont[c].index_put_((packed[c, g].to(torch.int64), d[g].to(torch.int64)),
+                           w[g].to(torch.float32), accumulate=True)
     return measures.theta_scale(delta, theta_tiled_raw(delta, cont, tile=LADDER_TILE), n)

@@ -1,12 +1,16 @@
-"""Public wrapper of the RWKV6 kernel: dispatch on the input's device.
+"""Public wrapper of the RWKV6 kernels: dispatch on the input's device.
 
 * CPU tensors run the plain PyTorch version (:func:`.ref.rwkv6_ref`).
-* CUDA tensors launch the hand-written CUDA kernel (``csrc/rwkv6.cu``, built
+* CUDA tensors launch a hand-written CUDA kernel (``csrc/rwkv6.cu``, built
   at first use by :mod:`repro_torch.kernels.build`) on PyTorch's current
-  stream, or raise.  There is no fallback to the plain version.
+  stream, or raise.  There is no fallback to the plain version.  Below
+  :data:`CHUNK` tokens (a decode step) the row-split decode kernel runs,
+  from :data:`CHUNK` tokens on (a prefill) the chunked kernel, whose plain
+  version is :func:`.ref.rwkv6_chunked_ref`.
 
-:data:`LAUNCHES` counts kernel launches (one per launch, nowhere else), so a
-run can show that it went through the kernel.
+:data:`LAUNCHES` counts kernel launches (one per launch, nowhere else):
+``rwkv6`` every launch, ``rwkv6_decode`` and ``rwkv6_chunked`` each path's,
+so a run can show that it went through both.
 """
 from __future__ import annotations
 
@@ -20,17 +24,19 @@ from .. import build
 from ..launching import on_cpu, stream
 from .ref import rwkv6_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "column_split", "launch_counts",
-           "reset_launch_counts", "rwkv6"]
+__all__ = ["CHUNK", "HEAD_DIMS", "LAUNCHES", "chunk_split", "column_split",
+           "launch_counts", "reset_launch_counts", "rwkv6"]
 
-LAUNCHES: Dict[str, int] = {"rwkv6": 0}
-HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernel's compiled head widths
+LAUNCHES: Dict[str, int] = {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}
+HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernels' compiled head widths
+CHUNK = 16  # tokens a chunk, compiled into the chunked kernel (kChunk): 16 beat 32 (PERF.md)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 5 + [_P]
+_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["rwkv6"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -43,10 +49,22 @@ def _sm_count(device_index: int) -> int:
 
 
 def column_split(bh: int, d: int, n_sm: int) -> int:
-    """CTAs per (b, h): 1, 2 or 4, doubled while the grid has fewer CTAs
-    than the card has SMs and each CTA keeps at least 16 columns."""
+    """CTAs per (b, h) of the decode kernel: 1, 2 or 4, doubled while the
+    grid has fewer CTAs than the card has SMs and each CTA keeps at least 16
+    columns."""
     split = 1
     while split < 4 and bh * split < n_sm and d // (2 * split) >= 16:
+        split *= 2
+    return split
+
+
+def chunk_split(bh: int, d: int, n_sm: int) -> int:
+    """CTAs per (b, h) of the chunked kernel: 1, 2 or 4, doubled while the
+    grid stays within one CTA an SM and each CTA keeps at least 16 columns.
+    A chunk's serial steps bound each CTA, so an SM that held two CTAs
+    would finish last (one rwkv6-3b request: 80 CTAs, not 160)."""
+    split = 1
+    while split < 4 and bh * 2 * split <= n_sm and d // (2 * split) >= 16:
         split *= 2
     return split
 
@@ -59,7 +77,11 @@ def rwkv6(
     u: torch.Tensor,  # [H, D] f32
     init_state: Optional[torch.Tensor] = None,  # [B, H, D, D] f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The RWKV6 recurrence over [B, H, T, D]; returns (o, final state)."""
+    """The RWKV6 recurrence over [B, H, T, D]; returns (o, final state).
+
+    On the card, T < :data:`CHUNK` takes the decode kernel and T >=
+    :data:`CHUNK` the chunked kernel.
+    """
     tensors = dict(r=r, k=k, v=v, w=w, u=u)
     if init_state is not None:
         tensors["init_state"] = init_state
@@ -86,6 +108,8 @@ def rwkv6(
     s_fin = torch.empty_like(init_state)
     n_sm = _sm_count(r.device.index if r.device.index is not None
                      else torch.cuda.current_device())
+    path = "rwkv6_decode" if t < CHUNK else "rwkv6_chunked"
+    split = column_split if path == "rwkv6_decode" else chunk_split
     with torch.cuda.device(r.device):
         lib = build.load("rwkv6")
         fn = lib.rwkv6_launch
@@ -94,7 +118,9 @@ def rwkv6(
             fn.restype = ctypes.c_int
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                  init_state.data_ptr(), o.data_ptr(), s_fin.data_ptr(), b * h, h, t, d,
-                 column_split(b * h, d, n_sm), stream(r.device))
-        build.check(lib, err, "rwkv6 kernel launch")
+                 split(b * h, d, n_sm), int(path == "rwkv6_decode"),
+                 stream(r.device))
+        build.check(lib, err, f"{path} kernel launch")
     LAUNCHES["rwkv6"] += 1
+    LAUNCHES[path] += 1
     return o, s_fin

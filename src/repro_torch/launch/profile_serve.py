@@ -12,8 +12,11 @@ profiles two windows, each ending in a synchronize:
 
 For each window it prints one JSON line: the host wall time, the device
 busy time (the union of the CUDA kernel intervals in the trace), the idle
-share (1 − busy / wall), the kernel launches, and the kernels that took the
-most device time.  Needs a CUDA card; imports nothing of JAX.
+share (1 − busy / wall), the kernel launches, the kernels that took the
+most device time, and the RWKV6 kernel's device time and launches split by
+path (``rwkv6_paths``: the chunked prefill kernel and the row-split decode
+kernel; empty for a model without RWKV6).  Needs a CUDA card; imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ BATCH = 4              # served requests, all decoded together
 STEPS = 16             # decode steps of the served window
 CACHE_LEN = 2048
 SEED = 0
+RWKV6_PATHS = {"prefill": "rwkv6_chunked_kernel", "decode": "rwkv6_decode_kernel"}
 
 
 def _kernel_intervals(prof) -> List[tuple]:
@@ -69,11 +73,17 @@ def window(name: str, fn, top: int = 8) -> Dict:
         by_name[n][1] += 1
     busy = _busy_us(kernels)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    paths = {}
+    for path, kernel in RWKV6_PATHS.items():
+        hits = [(t, c) for n, (t, c) in by_name.items() if kernel in n]
+        if hits:
+            paths[path] = {"ms": sum(t for t, _ in hits) / 1e3, "launches": sum(c for _, c in hits)}
     return {
         "window": name, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
         "idle_share": 1.0 - busy / wall_us if wall_us else None,
         "kernel_launches": len(kernels),
         "top_kernels": [{"name": n[:90], "ms": t / 1e3, "count": c} for n, (t, c) in ranked],
+        "rwkv6_paths": paths,
     }
 
 

@@ -1,15 +1,15 @@
-"""Where one sweep-Θ call's time goes on the card: a ``torch.profiler`` reading.
+"""Where one sweep-Θ or fused-Θ call's time goes on the card: a ``torch.profiler`` reading.
 
     python -m repro_torch.launch.profile_sweep
 
 At the kdd99 main-path shapes of ``chip_smoke.py`` phase 3 (G = 131,072
 granules, ~24% of them padding, n_dec = 23, V = 10, nc = 41 candidates),
-for each (n_bins, K) of ``CASES`` — class ids r drawn from [0, K) — it warms
-``ops.sweep_theta`` up, then profiles ``CALLS`` back-to-back calls of
-measure ``DELTA`` ending in a synchronize, and prints one JSON line: host
-wall time and device busy time per call, the idle share, and the device
-time per call of each kernel (the ordering kernels, the two tile paths, the
-ordered sum, the scale).
+for each (n_bins, K) of ``CASES`` — class ids r drawn from [0, K) — and
+each of ``ops.sweep_theta`` and ``ops.fused_theta`` (on the packed keys
+r·V + x) it warms the kernel up, then profiles ``CALLS`` back-to-back calls of measure ``DELTA`` ending in a
+synchronize, and prints one JSON line: host wall time and device busy time
+per call, the idle share, and the device time per call of each kernel (the
+ordering kernels, the two tile paths, the ordered sum, the scale).
 Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -46,17 +46,21 @@ def main() -> List[Dict]:
 
     dev = torch.device("cuda")
     out = []
-    for n_bins, k in CASES:
+    for (n_bins, k), kernel in ((case, kernel) for case in CASES for kernel in ("sweep", "fused")):
         x_t, r, d, w = operands(n_bins, k, dev)
+        packed = r[None, :] * V + x_t
         n = float(w.sum())
 
         def calls():
             for _ in range(CALLS):
-                ops.sweep_theta(x_t, r, d, w, n, delta=DELTA, v_max=V, n_bins=n_bins,
-                                n_dec=N_DEC)
+                if kernel == "sweep":
+                    ops.sweep_theta(x_t, r, d, w, n, delta=DELTA, v_max=V, n_bins=n_bins,
+                                    n_dec=N_DEC)
+                else:
+                    ops.fused_theta(packed, d, w, n, delta=DELTA, n_bins=n_bins, n_dec=N_DEC)
 
         calls()                                      # warm-up: the build, the allocator
-        row = window(f"sweep n_bins={n_bins} K={k}", calls, top=12)
+        row = window(f"{kernel} n_bins={n_bins} K={k}", calls, top=12)
         per = {"wall_ms_per_call": row["wall_ms"] / CALLS,
                "device_busy_ms_per_call": row["device_busy_ms"] / CALLS,
                "kernels_ms_per_call": {t["name"]: t["ms"] / CALLS for t in row["top_kernels"]}}

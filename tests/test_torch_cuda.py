@@ -16,6 +16,13 @@ CTAs), a few classes, and one class per few granules, at V ∈ {1, 3, 10,
 256}, with padding (r = -1, w = 0), n_bins not a multiple of 256 and
 nc = 1.  Its results are the same bits on every run, at every rung, and
 (Θ_PR) as the fused kernel's.
+
+The fused kernel orders each candidate's keys by tile first; its cases
+cover every key of a candidate in one tile (K = 1, one segment split over
+several CTAs), in a few (K = 4) or many (K = 1,024) classes, and uniform
+keys, plus arbitrary keys (not r·V + x) with sentinels and keys past
+n_bins, and G past 2^23 (where an ordered entry holds g alone).  Its
+results are the same bits on every run and (Θ_PR) as the sweep's.
 """
 import numpy as np
 import pytest
@@ -173,3 +180,59 @@ def test_plar_on_card_rejects_codes_past_v_max(cuda_device):
     assert ops.launch_counts()["sweep_theta"] == 0
     r = plar_reduce(x, d, v_max=5, backend="sweep", device=cuda_device)
     assert r.reduct == plar_reduce(x, d, v_max=5, backend="sweep", device="cpu").reduct
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+@pytest.mark.parametrize("k", [1, 4, 1024, "uniform"])
+def test_fused_kernel_on_segments_matches_plain(cuda_device, delta, k):
+    """Keys r·V + x at n_bins = 40,960 (160 tiles), r in [0, K); at K = 1
+    each candidate's 26,000 live keys are one segment cut into chunks."""
+    n_bins, v = 40_960, 10
+    kk = n_bins // v if k == "uniform" else k
+    x_t, r, d, w = _operands(cuda_device, 21 + kk, nc=6, g=30_000, v=v, k=kk)
+    packed = (r[None, :] * v + x_t).contiguous()        # padding r = -1: negative keys
+    n = float(w.sum())
+    kw = dict(delta=delta, n_bins=n_bins, n_dec=23)
+    before = ops.launch_counts()["fused_theta"]
+    got = ops.fused_theta(packed, d, w, n, **kw)
+    again = ops.fused_theta(packed, d, w, n, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_theta"] == before + 2
+    _close(delta, got, ref.fused_theta_ref(packed, d, w, n, **kw))
+    assert torch.equal(got, again)
+    if delta == "PR":
+        assert torch.equal(got, ops.sweep_theta(x_t, r, d, w, n, v_max=v, **kw))
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+def test_fused_kernel_at_g_past_2_pow_23(cuda_device, delta):
+    """From G = 2^23 on an ordered entry is g alone (g << 8 would
+    overflow) and the tile kernels read the key again (a ``--no-grc``
+    table of weka15360 has G = 15,360,000): nc = 2, G = 2^23 + 4,097, keys
+    r·V + x with padding, against plain and (Θ_PR) the sweep."""
+    v = 10
+    x_t, r, d, w = _operands(cuda_device, 23, nc=2, g=(1 << 23) + 4097, v=v, k=300)
+    packed = (r[None, :] * v + x_t).contiguous()
+    n = float(w.sum())
+    kw = dict(delta=delta, n_bins=3000, n_dec=23)
+    got = ops.fused_theta(packed, d, w, n, **kw)
+    _close(delta, got, ref.fused_theta_ref(packed, d, w, n, **kw))
+    assert torch.equal(got, ops.fused_theta(packed, d, w, n, **kw))
+    if delta == "PR":
+        assert torch.equal(got, ops.sweep_theta(x_t, r, d, w, n, v_max=v, **kw))
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+@pytest.mark.parametrize("n_bins", [300, 70_000])
+def test_fused_kernel_takes_arbitrary_keys(cuda_device, delta, n_bins):
+    """Keys drawn from [-5, n_bins + 500): sentinels and keys past the table
+    count nothing, as in the plain version; nc = 1 and nc = 7."""
+    gen = torch.Generator().manual_seed(n_bins)
+    for nc in (1, 7):
+        packed = torch.randint(-5, n_bins + 500, (nc, 9000), generator=gen, dtype=torch.int32)
+        d = torch.randint(-1, 24, (9000,), generator=gen, dtype=torch.int32)
+        w = torch.randint(0, 9, (9000,), generator=gen).to(torch.float32)
+        packed, d, w = packed.to(cuda_device), d.to(cuda_device), w.to(cuda_device)
+        kw = dict(delta=delta, n_bins=n_bins, n_dec=23)
+        _close(delta, ops.fused_theta(packed, d, w, 5000.0, **kw),
+               ref.fused_theta_ref(packed, d, w, 5000.0, **kw))

@@ -11,7 +11,9 @@ output rounding per element (rtol 1e-2, atol 2e-3; the JAX kernel tests'
 0.05 would pass a wrong kernel at the long shapes, where |out| is ~0.05).
 bf16 at head widths 64, 128 and 256 runs the tensor-core kernel, the rest
 the f32 kernel; each test asserts which one a launch took;
-RWKV6 rtol = atol = 1e-4.  Both against the
+RWKV6 rtol = atol = 1e-4, on both of its paths (decode below the chunk
+length, chunked from it on), with sigmoid decays and with the model's
+decays w = exp(−exp(z)), z over [−8, 4].  Both against the
 kernels' plain versions on the same card.  Served tokens card == CPU, in f32
 with TF32 off.
 """
@@ -24,7 +26,7 @@ from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
                                                 takes_tensor_cores)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
-from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_ref
+from repro_torch.kernels.rwkv6 import CHUNK, rwkv6, rwkv6_ref
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
@@ -127,6 +129,58 @@ def test_rwkv6_kernel_matches_plain(cuda_device, b, h, t, d):
     torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
 
 
+def _rwkv_inputs(dev, seed, b, h, t, d):
+    """Model-distribution decays: w = exp(-exp(z)), z over [-8, 4]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    z = torch.rand((b, h, t, d), generator=g, device=dev) * 12 - 8
+    return (rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5, rnd(b, h, t, d) * 0.5,
+            torch.exp(-torch.exp(z)), rnd(h, d) * 0.5, rnd(b, h, d, d) * 0.1)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("t_of", ["1", "7", "L-1", "L", "L+1", "100", "1000"])
+def test_rwkv6_paths_match_plain_with_model_decays(cuda_device, b, t_of):
+    t = {"1": 1, "7": 7, "L-1": CHUNK - 1, "L": CHUNK, "L+1": CHUNK + 1, "100": 100,
+         "1000": 1000}[t_of]
+    r, k, v, w, u, s0 = _rwkv_inputs(cuda_device, t + b, b, 40, t, 64)
+    path = "rwkv6_decode" if t < CHUNK else "rwkv6_chunked"
+    before = rwkv_ops.launch_counts()
+    o, s = rwkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    after = rwkv_ops.launch_counts()
+    assert after[path] == before[path] + 1 and after["rwkv6"] == before["rwkv6"] + 1
+    o_ref, s_ref = rwkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,t,d", [(1, 40, 2048, 64), (2, 3, 100, 32), (1, 2, 77, 16),
+                                     (2, 2, 50, 8), (1, 1, 65, 4)])
+def test_rwkv6_chunked_kernel_at_each_head_width(cuda_device, b, h, t, d):
+    r, k, v, w, u, s0 = _rwkv_inputs(cuda_device, rwkv_ops.CHUNK + t, b, h, t, d)
+    before = rwkv_ops.launch_counts()["rwkv6_chunked"]
+    o, s = rwkv6(r, k, v, w, u, s0)
+    assert rwkv_ops.launch_counts()["rwkv6_chunked"] == before + 1
+    o_ref, s_ref = rwkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_decode_steps_chain_into_the_chunked_state(cuda_device):
+    """A chunked prefill, then decode steps on its state, equal the plain
+    version over the whole sequence."""
+    r, k, v, w, u, s0 = _rwkv_inputs(cuda_device, 5, 2, 40, 70, 64)
+    o, s = rwkv6(*(x[:, :, :66].contiguous() for x in (r, k, v, w)), u, s0)
+    outs = [o]
+    for i in range(66, 70):
+        o_i, s = rwkv6(*(x[:, :, i:i + 1].contiguous() for x in (r, k, v, w)), u, s)
+        outs.append(o_i)
+    o_ref, s_ref = rwkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(torch.cat(outs, dim=2), o_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
 def test_rwkv6_unaligned_operands_match_aligned(cuda_device):
     """Contiguous operands that start one float past a 16-byte boundary take
     the kernel's 4-byte staging path and give the same bits."""
@@ -191,3 +245,5 @@ def test_reduced_model_served_on_card_equals_cpu(cuda_device, arch):
     assert serve(card, cuda_device) == serve(cpu, "cpu")
     counts = {**flash_ops.launch_counts(), **rwkv_ops.launch_counts()}
     assert counts["flash_attention" if arch.startswith("tiny") else "rwkv6"] > 0
+    if arch.startswith("rwkv"):   # prompts of 3-20 tokens: decode-path prefills and steps
+        assert counts["rwkv6_decode"] > 0

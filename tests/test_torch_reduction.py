@@ -224,6 +224,7 @@ def test_port_imports_no_jax_or_repro():
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.launch.profile_serve, repro_torch.launch.profile_sweep\n"
+        "import repro_torch.launch.time_rwkv6\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.serving import Request, ServingEngine\n"

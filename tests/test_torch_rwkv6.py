@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from repro.kernels.rwkv6 import rwkv6_ref as j_ref
 from repro.kernels.rwkv6 import rwkv6_scan as j_scan
 from repro_torch.kernels.rwkv6 import ops, rwkv6, rwkv6_ref
-from repro_torch.kernels.rwkv6.ops import column_split
+from repro_torch.kernels.rwkv6.ops import chunk_split, column_split
 
 torch.set_num_threads(1)
 
@@ -125,7 +125,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     o, s = rwkv6(*args)
     o_r, s_r = rwkv6_ref(*args)
     assert torch.equal(o, o_r) and torch.equal(s, s_r)
-    assert ops.launch_counts() == {"rwkv6": 0}
+    assert ops.launch_counts() == {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}
     o0, s0 = rwkv6(*args[:5])                      # no initial state: zeros
     o1, _ = rwkv6_ref(*args[:5], torch.zeros_like(args[5]))
     assert torch.equal(o0, o1) and s0.shape == args[5].shape
@@ -136,6 +136,13 @@ def test_column_split_fills_the_card():
     assert column_split(160, 64, 132) == 1         # four requests
     assert column_split(80, 64, 132) == 2
     assert column_split(1, 16, 132) == 1           # keeps >= 16 columns a CTA
+
+
+def test_chunk_split_keeps_one_cta_an_sm():
+    assert chunk_split(40, 64, 132) == 2           # one rwkv6-3b request: 80 CTAs
+    assert chunk_split(160, 64, 132) == 1          # four requests
+    assert chunk_split(20, 64, 132) == 4
+    assert chunk_split(1, 16, 132) == 1            # keeps >= 16 columns a CTA
 
 
 def test_wrapper_rejects_mixed_devices():
