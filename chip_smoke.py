@@ -33,11 +33,12 @@ is missing.  Phases, each printing one JSON line:
 4. main path: ``python -m repro_torch.launch.reduce --dataset kdd99
    --max-rows 5000000 --device cuda`` in-process with ``--backend sweep``
    (PR and SCE), ``fused``, ``pallas`` and ``segment`` (PR, the plain
-   cross-check); reducts and cores equal, the Θ_PR history bit-equal, every
-   kernel's launch count > 0 in that phase; then a small input (mushroom,
-   2,000 rows) on the card against the same driver on the CPU;
+   cross-check, which ``--engine auto`` runs on the device engine; each run
+   prints its engine); reducts and cores equal, the Θ_PR history bit-equal,
+   every kernel's launch count > 0 in that phase; then a small input
+   (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}`` (after phases 6-8).
+   ``{"ok": true, "device": {...}}`` (after phases 6-10).
 
 The LM serving slice adds:
 
@@ -75,6 +76,24 @@ The LM serving slice adds:
    TF32 off: the same parameters served on the card and on the CPU give
    equal tokens, and prefill logits agree within 1e-4·max|logit| (the
    CPU's top-2 gap is printed where a token differs).
+
+The device-engine slice adds, on the kdd99 granularity of phase 4 (built
+once, on the card):
+
+9. device engine: ``plar_reduce(engine="device")`` against
+   ``engine="host"`` on the card for ``segment`` (PR, SCE) and
+   ``sweep_xla`` (PR): reducts, cores and iteration counts equal, Θ
+   histories bit-equal, and the PR reduct equal to phase 4's ``sweep``
+   kernel reduct.  Each device config runs twice (the second call captures
+   nothing); each run prints loop seconds, bodies replayed, ``done`` polls,
+   captures and capture seconds (from the ``engine.dispatch`` span) and peak
+   device memory; then a warm start (seed with ``theta_full = +inf``, then
+   resume) from the cold run's core equals the cold run;
+10. ensemble: PR, PR with bags 0 and 1, SCE, LCE and CCE as one
+   ``plar_reduce_ensemble`` grid (``segment``, ``mp_chunk`` 21), each
+   member byte-identical to its solo device run at the same ``mp_chunk``;
+   prints the grid's loop seconds against the sum of the solo loops.
+   The engine's graphs are released after this phase.
 
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
@@ -137,6 +156,10 @@ MAIN_RUNS = [  # (backend, delta)
     ("sweep", "PR"), ("fused", "PR"), ("pallas", "PR"), ("segment", "PR"),
     ("sweep", "SCE"),
 ]
+ENGINE_RUNS = [("segment", "PR"), ("segment", "SCE"), ("sweep_xla", "PR")]  # (backend, delta)
+ENSEMBLE_GRID = [{"delta": "PR"}, {"delta": "PR", "seed": 0}, {"delta": "PR", "seed": 1},
+                 {"delta": "SCE"}, {"delta": "LCE"}, {"delta": "CCE"}]
+ENSEMBLE_MP_CHUNK = 21   # two chunks of the 41 candidates: half the contingency a config
 
 
 def emit(obj) -> None:
@@ -352,7 +375,7 @@ def phase_main_path(torch, ops, reduce_cli, card: str) -> dict:
         if out["table_shape"] != [5_000_000, 41]:
             raise AssertionError(f"table shape {out['table_shape']}")
         emit({"phase": "main_path", "card": card, **{k: out[k] for k in (
-            "backend", "delta", "table_shape", "granules", "iterations", "reduct",
+            "backend", "engine", "delta", "table_shape", "granules", "iterations", "reduct",
             "core", "theta_full", "granulate_s", "elapsed_s", "wall_s",
             "max_memory_allocated", "launches")}})
         results.append(out)
@@ -394,6 +417,139 @@ def phase_small_reference(torch, plar_reduce, scaled_paper_dataset) -> dict:
     emit({"phase": "small_reference", "dataset": "mushroom", "rows": 2000,
           "agree": checks})
     return {"agree": checks}
+
+
+def _new_spans(obs, before: int, name: str) -> list:
+    """The spans named ``name`` recorded since the tracer counted ``before``."""
+    tracer = obs.get_tracer()
+    fresh = tracer.recorded - before
+    return [rec for rec in (tracer.records()[-fresh:] if fresh else []) if rec.name == name]
+
+
+def _engine_run(torch, obs, plar_reduce, gran, **kw) -> dict:
+    """One ``plar_reduce`` on the kdd99 granularity: its result, the
+    ``engine.dispatch`` span of a device run (bodies, polls, captures) and
+    the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = obs.get_tracer().recorded
+    t0 = time.perf_counter()
+    r = plar_reduce(source=gran, device="cuda", **kw)
+    torch.cuda.synchronize()
+    out = dict(reduct=r.reduct, core=r.core, iterations=r.iterations,
+               theta_full=r.theta_full, theta_history=r.theta_history,
+               elapsed_s=r.elapsed_s, wall_s=time.perf_counter() - t0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if kw["engine"] == "device":
+        spans = _new_spans(obs, before, "engine.dispatch")
+        if len(spans) != 1:
+            raise AssertionError(f"expected one engine.dispatch span, got {len(spans)}")
+        out.update({k: spans[0].args[k] for k in (
+            "loop_s", "bodies", "polls", "captures", "capture_s")})
+    else:   # the host loop: its greedy iterations, each timed
+        out["loop_s"] = sum(r.per_iteration_s)
+    return out
+
+
+def _same_run(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in ("reduct", "core", "iterations", "theta_full",
+                                      "theta_history"))
+
+
+def phase_device_engine(torch, obs, plar_reduce, gran, sweep_pr: dict, card: str) -> dict:
+    """The device engine against the host loop on the card at kdd99."""
+    rows = []
+    for backend, delta in ENGINE_RUNS:
+        kw = dict(backend=backend, delta=delta)
+        host = _engine_run(torch, obs, plar_reduce, gran, engine="host", **kw)
+        first = _engine_run(torch, obs, plar_reduce, gran, engine="device", **kw)
+        again = _engine_run(torch, obs, plar_reduce, gran, engine="device", **kw)
+        for name, run in (("device", first), ("device again", again)):
+            if not _same_run(run, host):
+                raise AssertionError(f"{backend}/{delta}: {name} engine != host loop: "
+                                     f"{run['reduct']} {run['theta_history']} vs "
+                                     f"{host['reduct']} {host['theta_history']}")
+        if first["captures"] != 1 or again["captures"] != 0:
+            raise AssertionError(f"{backend}/{delta}: captures {first['captures']}, "
+                                 f"then {again['captures']} (expected 1, then 0)")
+        if delta == "PR" and (first["reduct"], first["core"]) != (sweep_pr["reduct"],
+                                                                   sweep_pr["core"]):
+            raise AssertionError(f"{backend}/PR device reduct {first['reduct']} != the sweep "
+                                 f"kernel's {sweep_pr['reduct']}")
+        row = dict(backend=backend, delta=delta, reduct=first["reduct"], core=first["core"],
+                   iterations=first["iterations"], equal_to_host=True,
+                   equal_to_sweep_kernel=delta == "PR",
+                   host={k: host[k] for k in ("loop_s", "elapsed_s", "max_memory_allocated")},
+                   device={k: first[k] for k in ("loop_s", "elapsed_s", "bodies", "polls",
+                                                 "captures", "capture_s",
+                                                 "max_memory_allocated")},
+                   device_again={k: again[k] for k in ("loop_s", "elapsed_s", "bodies", "polls",
+                                                       "captures", "max_memory_allocated")})
+        emit({"phase": "device_engine", "card": card, **row})
+        rows.append(row)
+    # warm start from the cold run's core (plus its first greedy pick): seed
+    # with theta_full = +inf, then resume; equal to the cold run
+    cold = _engine_run(torch, obs, plar_reduce, gran, engine="device", backend="segment",
+                       delta="PR")
+    prefix = cold["reduct"][: len(cold["core"]) + 1]
+    warm = _engine_run(torch, obs, plar_reduce, gran, engine="device", backend="segment",
+                       delta="PR", warm_start=prefix)
+    if (warm["reduct"], warm["theta_history"]) != (cold["reduct"], cold["theta_history"]):
+        raise AssertionError(f"warm start from {prefix} != cold run: {warm['reduct']} vs "
+                             f"{cold['reduct']}")
+    warm_row = dict(prefix=prefix, reduct=warm["reduct"], equal_to_cold=True,
+                    **{k: warm[k] for k in ("loop_s", "bodies", "polls", "captures")})
+    emit({"phase": "device_engine_warm_start", "card": card, **warm_row})
+    return {"runs": rows, "warm_start": warm_row}
+
+
+def phase_ensemble(torch, obs, plar_reduce, plar_reduce_ensemble, gran, card: str) -> dict:
+    """The measure grid (plus two PR bags) as one stacked loop at kdd99; each
+    member byte-identical to its solo device run."""
+    import dataclasses
+
+    from repro_torch.core import bagged_weights
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = obs.get_tracer().recorded
+    t0 = time.perf_counter()
+    ens = plar_reduce_ensemble(source=gran, configs=ENSEMBLE_GRID, backend="segment",
+                               mp_chunk=ENSEMBLE_MP_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    span = _new_spans(obs, before, "engine.dispatch_ensemble")
+    if len(span) != 1:
+        raise AssertionError(f"expected one engine.dispatch_ensemble span, got {len(span)}")
+    members, solo_loop_s, solo_capture_s = [], 0.0, 0.0
+    for c, r in zip(ENSEMBLE_GRID, ens):
+        src = gran
+        if "seed" in c:
+            w = torch.as_tensor(bagged_weights(gran, c["seed"]), device="cuda")
+            src = dataclasses.replace(gran, w=w, n_total=w.sum().to(torch.int32))
+        solo = _engine_run(torch, obs, plar_reduce, src, engine="device", backend="segment",
+                           delta=c["delta"], mp_chunk=ENSEMBLE_MP_CHUNK)
+        got = dict(reduct=r.reduct, core=r.core, iterations=r.iterations,
+                   theta_full=r.theta_full, theta_history=r.theta_history)
+        if not _same_run(got, solo):
+            raise AssertionError(f"ensemble member {c} != its solo run: {r.reduct} "
+                                 f"{r.theta_history} vs {solo['reduct']} {solo['theta_history']}")
+        solo_loop_s += solo["loop_s"]
+        solo_capture_s += solo["capture_s"]
+        members.append(dict(config=c, reduct=r.reduct, core=r.core, iterations=r.iterations,
+                            equal_to_solo=True, solo_loop_s=solo["loop_s"],
+                            solo_bodies=solo["bodies"], solo_captures=solo["captures"]))
+    # loops with their captures, and without them (replays alone)
+    out = dict(configs=len(ENSEMBLE_GRID), mp_chunk=ENSEMBLE_MP_CHUNK, wall_s=wall,
+               loop_s=span[0].dur, capture_s=span[0].args["capture_s"],
+               bodies=span[0].args["bodies"], polls=span[0].args["polls"],
+               captures=span[0].args["captures"], max_memory_allocated=peak,
+               solo_loop_s_sum=solo_loop_s, solo_capture_s_sum=solo_capture_s,
+               replay_s=span[0].dur - span[0].args["capture_s"],
+               solo_replay_s_sum=solo_loop_s - solo_capture_s, members=members)
+    emit({"phase": "ensemble", "card": card, **out})
+    return out
 
 
 def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
@@ -655,7 +811,8 @@ def main() -> None:
         fail(f"the port is missing: no {src / 'repro_torch'} beside this script")
     sys.path.insert(0, str(src))
 
-    from repro_torch.core import plar_reduce
+    from repro_torch import obs
+    from repro_torch.core import engine, plar_reduce, plar_reduce_ensemble, resolve_granularity
     from repro_torch.data import scaled_paper_dataset
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -681,6 +838,19 @@ def main() -> None:
     report = {"card": smi, "kernels_vs_plain": phase_kernels(torch, ops, ref, smi)}
     report["main_path"] = phase_main_path(torch, ops, reduce_cli, smi)
     report["small_reference"] = phase_small_reference(torch, plar_reduce, scaled_paper_dataset)
+
+    x, d = scaled_paper_dataset("kdd99", max_rows=5_000_000, max_attrs=64).table()
+    gran = resolve_granularity(x, d, device="cuda")
+    del x, d
+    sweep_pr = next(o for o in report["main_path"]["runs"]
+                    if (o["backend"], o["delta"]) == ("sweep", "PR"))
+    engine.release_graphs()        # phase 4's segment run captured its graph: start afresh
+    obs.enable()
+    report["device_engine"] = phase_device_engine(torch, obs, plar_reduce, gran, sweep_pr, smi)
+    report["ensemble"] = phase_ensemble(torch, obs, plar_reduce, plar_reduce_ensemble, gran, smi)
+    obs.disable()
+    del gran
+    engine.release_graphs()
     report["lm_kernels_vs_plain"] = phase_lm_kernels(torch, fa, rk, smi)
     report["serving"] = phase_serving(torch, lm, smi)
     report["cross_check"] = phase_cross_check(torch, smi)

@@ -1,0 +1,935 @@
+"""Device-resident greedy selection engine, the PyTorch port of ``repro.core.engine``.
+
+The paper's PLAR loop is "cache once, iterate on device".  The host loop of
+:func:`repro_torch.core.reduction.plar_reduce` reads Θ values back every
+iteration, argmins them in numpy and dispatches each op of the next
+iteration from Python.  This module keeps the whole reduction on the device:
+
+* :class:`SelectionState` — the tensors the loop mutates: class ids
+  ``r_ids``, spark fingerprints ``h1``/``h2``, the FSPA shrink mask
+  ``active`` + PR correction, the ``remaining`` mask, the ``[A]``-slot
+  Θ history and selection order, the class count ``k``.
+* one greedy body — evaluate **all** candidates, masked argmin-with-ties,
+  fold the winner (presence-bitmap compaction), update history and shrink
+  state.  Every shape is static: packed ids stay below ``cap · v_max``, so
+  one body serves every iteration.  Core attributes and warm-start
+  prefixes are *forced* picks of the same body.
+* the loop — JAX's ``lax.while_loop`` becomes a body whose every state
+  field is ``torch.where(live, updated, old)``, with ``live`` the loop
+  condition evaluated on the device, so a body run after the stop is an
+  exact no-op.  On a CUDA device the body is captured once per runner as a
+  CUDA graph and replayed; the host reads nothing back inside the loop but
+  a ``done`` flag, copied without blocking into pinned memory after every
+  :data:`POLL_PERIOD` bodies, and stops replaying once it reads it set.  On
+  the CPU the same body runs eagerly, with the same gating and polling.
+* :func:`init_state_from_reduct` / :func:`engine_resume` — the warm-start
+  seam of the online service: seeding folds a prefix with the greedy phase
+  disabled (``theta_full = +inf``), resuming continues greedy from there.
+* the stacked ensemble runner — a grid of configs (measure, tolerances,
+  feature cap, shrink, forced prefix, bagged weights) over one granularity
+  in one loop; each config freezes once its own condition is false, so its
+  trajectory is its solo run's.
+
+The evaluation runs only the plain backends (:data:`DEVICE_BACKENDS`), as
+the JAX engine runs only its XLA ones; the CUDA Θ kernels stay on the host
+loop.  ``ladder=True`` is accepted and every body evaluates at the top rung
+``cap · v_max``: the sweep epilogue is bit-identical at every rung ≥ K·V
+(DESIGN.md §5.3), and the recorded Θ history comes from the advance, which
+keeps the full bound on every path.  A device-side rung choice (JAX's
+``lax.switch`` on ``st.k``) has no counterpart in a CUDA graph.
+
+Collectives go through a small adapter (:class:`_LocalColl`, the identity)
+so that a mesh driver can reuse the same body.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import time
+from functools import lru_cache, partial
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+
+from . import measures
+from .granularity import (
+    column_terms,
+    dyn_column_terms,
+    ids_from_presence,
+    presence_bitmap,
+)
+from .plan import candidate_theta, contingency_from_ids, ids_by_sort, ladder_rungs
+
+__all__ = [
+    "SelectionState",
+    "init_state",
+    "init_state_from_reduct",
+    "engine_resume",
+    "make_engine_step",
+    "make_engine_run",
+    "run_engine",
+    "unpack_result",
+    "DEVICE_BACKENDS",
+    "POLL_PERIOD",
+    "EnsembleOperands",
+    "init_ensemble_state",
+    "make_ensemble_run",
+    "run_ensemble",
+    "unpack_ensemble_result",
+    "ENSEMBLE_DELTAS",
+    "ENSEMBLE_BACKENDS",
+    "release_graphs",
+]
+
+# Θ backends the engine runs: the plain ones, which the JAX package computes
+# in XLA.  The kernel backends (pallas/fused/sweep) stay on the host loop.
+DEVICE_BACKENDS = ("segment", "onehot", "fused_xla", "sweep_xla")
+
+# Measures of the stacked engine; each config's measure is static.
+ENSEMBLE_DELTAS = tuple(measures.RAW_ROWS)  # ("PR", "SCE", "LCE", "CCE")
+
+# Θ backends of the stacked engine.  ``fused_xla`` is excluded: its measure
+# is fused into the contingency, so it does not split into a contingency and
+# a per-config measure epilogue.
+ENSEMBLE_BACKENDS = ("segment", "onehot", "sweep_xla")
+
+# Bodies replayed between two reads of the ``done`` flag.  The read of a
+# group's flag waits only for the group before it, so the card always has a
+# group queued and a run replays P to 2P − 1 no-op bodies past its stop.
+# Each no-op body costs a whole body: on the H100 at kdd99 (segment/PR, a
+# body ~18 ms) the loop read 0.180 s at P = 1 against 0.216 / 0.288 /
+# 0.432 s at P = 2 / 4 / 8, and mushroom (2,000 rows) was no faster at any
+# P above 1 (``python -m repro_torch.launch.time_engine``; PERF.md §6).
+POLL_PERIOD = 1
+
+_MASK32 = 0xFFFFFFFF
+_FIELDS = ("r_ids", "h1", "h2", "active", "remaining", "theta_history", "order",
+           "k", "theta_r", "pr_correction", "n_selected")
+
+
+@dataclasses.dataclass
+class SelectionState:
+    """Everything the greedy loop mutates, as tensors on one device.
+
+    Shapes (``cap`` = granule capacity, ``A`` = number of attributes); the
+    stacked ensemble adds a leading ``[C]`` axis to every field:
+
+      r_ids          [cap] int32   dense class ids of U/R (K ≤ cap)
+      h1, h2         [cap] int64   linear-sketch fingerprints of R's columns,
+                                   uint32 values (spark mode; zeros otherwise)
+      active         [cap] bool    live-granule mask (FSPA shrink)
+      remaining      [A]   bool    attributes not yet selected
+      theta_history  [A]   f32     Θ(D|R) after each selection (+inf unused)
+      order          [A]   int32   attribute selected at each iteration (-1)
+      k              []    int32   current class count K
+      theta_r        []    f32     Θ(D|R) incl. PR correction (+inf initial)
+      pr_correction  []    f32     FSPA PR-correction scalar
+      n_selected     []    int32   |R| = iteration counter
+    """
+
+    r_ids: torch.Tensor
+    h1: torch.Tensor
+    h2: torch.Tensor
+    active: torch.Tensor
+    remaining: torch.Tensor
+    theta_history: torch.Tensor
+    order: torch.Tensor
+    k: torch.Tensor
+    theta_r: torch.Tensor
+    pr_correction: torch.Tensor
+    n_selected: torch.Tensor
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f) for f in _FIELDS)
+
+    def clone(self) -> "SelectionState":
+        return SelectionState(*(t.clone() for t in self.tensors()))
+
+    def copy_(self, other: "SelectionState") -> None:
+        for dst, src in zip(self.tensors(), other.tensors()):
+            dst.copy_(src)
+
+    def where(self, keep_new: torch.Tensor, new: "SelectionState") -> "SelectionState":
+        """Field by field ``new`` where ``keep_new`` (``[]``, or ``[C]``
+        broadcast over each field's trailing axes), else this state."""
+        def gate(old, upd):
+            g = keep_new.reshape(keep_new.shape + (1,) * (upd.ndim - keep_new.ndim))
+            return torch.where(g, upd, old)
+
+        return SelectionState(*(gate(o, u) for o, u in zip(self.tensors(), new.tensors())))
+
+    def config(self, c: int) -> "SelectionState":
+        """Config ``c`` of a stacked state (views)."""
+        return SelectionState(*(t[c] for t in self.tensors()))
+
+    @staticmethod
+    def stack(states: Sequence["SelectionState"]) -> "SelectionState":
+        return SelectionState(*(torch.stack(ts) for ts in zip(*(s.tensors() for s in states))))
+
+
+def init_state(cap: int, n_attrs: int, valid, device=None) -> SelectionState:
+    """Fresh state: one class (the whole universe), nothing selected."""
+    if device is None:
+        device = _device_of(valid)
+    active = torch.as_tensor(valid, dtype=torch.bool, device=device).reshape(cap)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return SelectionState(
+        r_ids=full((cap,), 0, torch.int32),
+        h1=full((cap,), 0, torch.int64),
+        h2=full((cap,), 0, torch.int64),
+        active=active.clone(),
+        remaining=full((n_attrs,), True, torch.bool),
+        theta_history=full((n_attrs,), float("inf"), torch.float32),
+        order=full((n_attrs,), -1, torch.int32),
+        k=full((), 1, torch.int32),
+        theta_r=full((), float("inf"), torch.float32),
+        pr_correction=full((), 0.0, torch.float32),
+        n_selected=full((), 0, torch.int32),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class _Cfg:
+    """Static configuration of one runner (hashable: the factory key)."""
+
+    delta: str
+    mode: str            # "incremental" | "spark"
+    backend: str         # DEVICE_BACKENDS
+    n_attrs: int
+    cap: int
+    m: int
+    v_max: int
+    tol: float
+    tie_tol: float
+    shrink: bool
+    max_sel: int         # max_features, or n_attrs when unbounded
+    mp_chunk: int        # candidates evaluated per inner step (memory bound)
+    ladder: bool = False  # accepted; every body evaluates at n_bins (see module doc)
+    selector: str = "heuristic"
+
+    @property
+    def n_bins(self) -> int:
+        # Static for the whole run: packed ids p = r·V + v live in [0, K·V)
+        # and K ≤ cap always, so cap·V bounds every iteration.  Padding rows
+        # are all-zero and contribute exactly 0 to every measure.
+        return self.cap * self.v_max
+
+    @property
+    def rungs(self):
+        # The bin buckets of the host loop's ladder; the top rung is n_bins.
+        return ladder_rungs(self.n_bins, selector=self.selector, g=self.cap, m=self.m)
+
+
+# ---------------------------------------------------------------------------
+# collective adapter — the seam a mesh driver plugs into
+# ---------------------------------------------------------------------------
+
+
+class _LocalColl:
+    """Single process: the data-axis sum is the identity.  A mesh driver
+    passes an adapter whose ``psum_data`` sums over its data shards."""
+
+    def psum_data(self, x):
+        return x
+
+
+_LOCAL = _LocalColl()
+
+
+# ---------------------------------------------------------------------------
+# the shared step pieces
+# ---------------------------------------------------------------------------
+
+
+def _advance(cfg, coll, r_ids, x_col, d, w, active, n, eval_theta=None):
+    """Fold one attribute into the class ids: pack → compact → Θ → purity.
+
+    The host loop folds with this too, so both engines record Θ(D|R) from
+    the same ops on the same shapes (``cfg.n_bins`` on every path).
+    ``eval_theta(cont, n)`` overrides the measure (the ensemble passes each
+    config's); the default is ``cfg.delta``'s.
+    """
+    nb = cfg.n_bins
+    packed = r_ids * cfg.v_max + x_col
+    presence = coll.psum_data(presence_bitmap(packed, active, nb))
+    new_ids, k_new = ids_from_presence(presence, packed, active)
+    cont = coll.psum_data(contingency_from_ids(new_ids, d, w, active, n_bins=nb, m=cfg.m))
+    theta = (measures.evaluate(cfg.delta, cont, n) if eval_theta is None
+             else eval_theta(cont, n))
+    # purity per class → per granule (for FSPA-style shrinking)
+    e = cont.sum(dim=-1)
+    pure_row = (cont.amax(dim=-1) == e) & (e > 0)
+    g_pure = pure_row[new_ids.to(torch.int64)] & active
+    return new_ids, k_new, theta, g_pure
+
+
+def _spark_thetas(delta, h1, h2, cols, x, d, w, active, n, *, n_bins, m):
+    """Paper-faithful: re-key granules from scratch and sort, per candidate.
+
+    ``h1``/``h2`` are R's fingerprints; ``h(R ∪ {a}) = h(R) + term_a``
+    (mod 2³², the linear-sketch property).
+    """
+    out = []
+    for col in cols:
+        t1 = column_terms(x[:, col], col, x.shape[1], 0)
+        t2 = column_terms(x[:, col], col, x.shape[1], 7919)
+        ids, _k = ids_by_sort([(h2 + t2) & _MASK32, (h1 + t1) & _MASK32], active)
+        cont = contingency_from_ids(ids, d, w, active, n_bins=n_bins, m=m)
+        out.append(measures.evaluate(delta, cont, n))
+    return torch.stack(out)
+
+
+@dataclasses.dataclass
+class _Operands:
+    """What a body reads besides the state.
+
+    Shared: ``x [cap, A]``, its transpose ``x_t [A, cap]`` (hoisted out of
+    the loop), ``d``, ``cols = arange(A)`` and ``grid``, the candidate
+    chunks ``[n_chunks, nc]``.  Per config (a leading ``[C]`` axis in the
+    stacked engine): ``w``, ``n``, ``theta_full``, ``core_attrs``,
+    ``core_count`` and the knobs ``tol``, ``tie_tol``, ``max_sel``,
+    ``shrink`` — tensors also in the solo engine, so one body serves both.
+    """
+
+    x: torch.Tensor
+    x_t: torch.Tensor
+    d: torch.Tensor
+    cols: torch.Tensor
+    grid: torch.Tensor
+    w: torch.Tensor
+    n: torch.Tensor
+    theta_full: torch.Tensor
+    core_attrs: torch.Tensor
+    core_count: torch.Tensor
+    tol: torch.Tensor
+    tie_tol: torch.Tensor
+    max_sel: torch.Tensor
+    shrink: torch.Tensor
+
+    _PER_CONFIG = ("w", "n", "theta_full", "core_attrs", "core_count", "tol",
+                   "tie_tol", "max_sel", "shrink")
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def config(self, c: int) -> "_Operands":
+        """Config ``c``'s operands of a stacked set (views)."""
+        return dataclasses.replace(self, **{f: getattr(self, f)[c] for f in self._PER_CONFIG})
+
+
+def _chunk_grid(n_attrs: int, mp_chunk: int) -> torch.Tensor:
+    """Candidate chunks ``[n_chunks, nc]``, the last one wrapped around.
+
+    ``mp_chunk`` (the paper's MP level) bounds peak memory to
+    ``[mp_chunk, n_bins, m]`` per inner step; every chunk has the same
+    shape, and per-candidate values are independent, so chunking never
+    changes bits.
+    """
+    nc = max(min(mp_chunk, n_attrs), 1)
+    a_pad = -(-n_attrs // nc) * nc
+    return (torch.arange(a_pad, dtype=torch.int64) % max(n_attrs, 1)).reshape(-1, nc)
+
+
+def _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, tol, tie_tol,
+              max_sel, shrink, device) -> _Operands:
+    """Host values and tensors → an :class:`_Operands` on ``device``."""
+    def on(v, dtype):
+        return torch.as_tensor(v, dtype=dtype).to(device)
+
+    x = on(x, torch.int32)
+    return _Operands(
+        x=x, x_t=x.t().contiguous(), d=on(d, torch.int32),
+        cols=torch.arange(cfg.n_attrs, device=device),
+        grid=_chunk_grid(cfg.n_attrs, cfg.mp_chunk).to(device),
+        w=on(w, torch.int32), n=on(n, torch.int32),
+        theta_full=on(theta_full, torch.float32), core_attrs=on(core_attrs, torch.int32),
+        core_count=on(core_count, torch.int32), tol=on(tol, torch.float32),
+        tie_tol=on(tie_tol, torch.float32), max_sel=on(max_sel, torch.int32),
+        shrink=on(shrink, torch.bool))
+
+
+def _eval_local(cfg, delta: str, st: SelectionState, op: _Operands) -> torch.Tensor:
+    """Single-process candidate evaluation: Θ(D|R∪{a}) for every a, ``[A]``."""
+    if cfg.mode == "spark":
+        # re-key every granule from scratch per candidate, with the
+        # R-fingerprints kept in the state; the ladder does not apply
+        # (sort-ranked ids are bounded by the live-granule count, not K·V)
+        return _spark_thetas(delta, st.h1, st.h2, range(cfg.n_attrs), op.x, op.d, op.w,
+                             st.active, op.n, n_bins=cfg.cap, m=cfg.m) + st.pr_correction
+    chunks = []
+    for cc in op.grid:
+        x_cand = op.x_t.index_select(0, cc)                    # [nc, cap]
+        if cfg.backend == "sweep_xla":
+            vals = candidate_theta(delta, None, op.d, op.w, st.active, op.n, n_bins=cfg.n_bins,
+                                   m=cfg.m, backend=cfg.backend, x_t=x_cand, r_ids=st.r_ids,
+                                   v_max=cfg.v_max)
+        else:
+            packed = st.r_ids[None, :] * cfg.v_max + x_cand
+            vals = candidate_theta(delta, packed, op.d, op.w, st.active, op.n,
+                                   n_bins=cfg.n_bins, m=cfg.m, backend=cfg.backend)
+        chunks.append(vals)
+    return torch.cat(chunks)[: cfg.n_attrs] + st.pr_correction
+
+
+def _at(t: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``t`` at a 0-d index tensor along ``dim``, gathered on the device."""
+    return t.index_select(dim, idx.reshape(1).to(torch.int64)).squeeze(dim)
+
+
+def _cond(st: SelectionState, op: _Operands, n_attrs: int) -> torch.Tensor:
+    """The loop condition (``[]``, or ``[C]`` on stacked operands): a forced
+    pick is due, or greedy may still add an attribute.  ``theta_full + tol``
+    is an f32 add, as ``measures.f32_threshold`` computes it on the host."""
+    in_core = st.n_selected < op.core_count
+    greedy = ((st.n_selected < n_attrs)
+              & (st.theta_r > op.theta_full + op.tol)
+              & (st.n_selected < op.max_sel))
+    return in_core | greedy
+
+
+def _select(cfg, delta: str, st: SelectionState, op: _Operands) -> SelectionState:
+    """One greedy iteration, ungated: pick (forced or masked argmin-with-ties),
+    advance, shrink, record."""
+    forced = st.n_selected < op.core_count
+    core_pick = _at(op.core_attrs, torch.clamp(st.n_selected, max=cfg.n_attrs - 1))
+    thetas = torch.where(st.remaining, _eval_local(cfg, delta, st, op), float("inf"))
+    # lowest index within tie_tol of the minimum — the device twin of
+    # measures.argmin_with_ties (argmax returns the first maximal index)
+    in_band = (thetas <= thetas.min() + op.tie_tol).to(torch.uint8)
+    best = torch.where(forced, core_pick, torch.argmax(in_band).to(torch.int32))
+
+    new_ids, k_new, theta, g_pure = _advance(
+        cfg, _LOCAL, st.r_ids, _at(op.x, best, dim=1), op.d, op.w, st.active, op.n,
+        eval_theta=partial(measures.evaluate, delta))
+    theta_rec = theta + st.pr_correction          # correction *before* this fold
+
+    if cfg.mode == "spark":
+        h1 = (st.h1 + dyn_column_terms(op.x, best, 0)) & _MASK32
+        h2 = (st.h2 + dyn_column_terms(op.x, best, 7919)) & _MASK32
+    else:
+        h1, h2 = st.h1, st.h2
+
+    # shrink=False leaves active and pr_correction exactly unchanged
+    active = st.active & ~(g_pure & op.shrink)
+    if delta == "PR":
+        shed = torch.where(g_pure, op.w, 0).sum().to(torch.float32)
+        pr_corr = torch.where(op.shrink, st.pr_correction - shed / op.n.to(torch.float32),
+                              st.pr_correction)
+    else:
+        pr_corr = st.pr_correction
+
+    slot = op.cols == st.n_selected
+    return SelectionState(
+        r_ids=new_ids,
+        h1=h1,
+        h2=h2,
+        active=active,
+        remaining=st.remaining & (op.cols != best),
+        theta_history=torch.where(slot, theta_rec, st.theta_history),
+        order=torch.where(slot, best, st.order),
+        k=k_new,
+        theta_r=theta_rec,
+        pr_correction=pr_corr,
+        n_selected=st.n_selected + 1,
+    )
+
+
+def _solo_body(cfg: _Cfg, op: _Operands, st: SelectionState):
+    """One gated body: ``(state after it, done)``; a no-op once done."""
+    live = _cond(st, op, cfg.n_attrs)
+    out = st.where(live, _select(cfg, cfg.delta, st, op))
+    return out, ~_cond(out, op, cfg.n_attrs)
+
+
+# ---------------------------------------------------------------------------
+# the loop: a body captured once and replayed (card), or run eagerly (CPU)
+# ---------------------------------------------------------------------------
+
+
+_graph_pools = {}
+
+
+def _graph_pool(device: torch.device):
+    """One memory pool for every engine graph on ``device``.
+
+    A body keeps nothing it allocates past its end (its results are copied
+    into the runner's own buffers), so the graphs may share their
+    temporaries: the pool holds the largest body's, not the sum of all.
+    """
+    key = torch.device(device).index or 0
+    if key not in _graph_pools:
+        _graph_pools[key] = torch.cuda.graph_pool_handle()
+    return _graph_pools[key]
+
+
+def release_graphs() -> None:
+    """Drop every cached runner, with its CUDA graph and buffers, and return
+    the engine's graph memory to the card (the factories hold their runners
+    for the life of the process)."""
+    _make_engine_run.cache_clear()
+    _make_engine_step.cache_clear()
+    _make_ensemble_run.cache_clear()
+    _graph_pools.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _drive(body, done: torch.Tensor, max_bodies: int, period: int) -> Tuple[int, int]:
+    """Run ``body`` until ``done`` reads set or ``max_bodies`` ran.
+
+    After every ``period`` bodies the flag is copied, without blocking, into
+    pinned host memory; the host then waits only for the copy of the group
+    before, so the card always has the latest group queued.  Bodies run
+    after the stop are exact no-ops.  Returns ``(bodies, polls)``.
+    """
+    cuda = done.is_cuda
+    flags = torch.zeros((2,), dtype=torch.bool, pin_memory=cuda)
+    events = [torch.cuda.Event(), torch.cuda.Event()] if cuda else None
+    bodies = polls = 0
+    prev = None
+    while bodies < max_bodies:
+        for _ in range(min(period, max_bodies - bodies)):
+            body()
+            bodies += 1
+        slot = polls % 2
+        flags[slot].copy_(done, non_blocking=cuda)
+        if cuda:
+            events[slot].record()
+        polls += 1
+        if prev is not None:
+            if cuda:
+                events[prev].synchronize()
+            if bool(flags[prev]):
+                break
+        prev = slot
+    return bodies, polls
+
+
+class _Loop:
+    """The engine's while loop for one runner: static buffers (state and
+    operands) per device, the body captured as a CUDA graph at the first
+    call on a card, then replayed; on the CPU the same body runs eagerly."""
+
+    def __init__(self, body):
+        self._body = body          # (operands, state) -> (state, done)
+        self._slots = {}
+        self.captures = 0          # CUDA graphs captured (the engine's compiles)
+        self.capture_s = 0.0
+        self.last_bodies = 0
+        self.last_polls = 0
+
+    def _step(self, slot) -> None:
+        new, done = self._body(slot["op"], slot["st"])
+        slot["st"].copy_(new)
+        slot["done"].copy_(done)
+
+    def _capture(self, slot, st_in: SelectionState) -> None:
+        t0 = time.perf_counter()
+        # one eager body on a side stream first (lazy library state is
+        # created outside the capture), then the state is put back
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._step(slot)
+        torch.cuda.current_stream().wait_stream(side)
+        slot["st"].copy_(st_in)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=_graph_pool(slot["st"].r_ids.device)):
+            self._step(slot)
+        torch.cuda.synchronize()
+        slot["graph"] = graph
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+
+    def __call__(self, op: _Operands, st: SelectionState, max_bodies: int) -> SelectionState:
+        dev = st.r_ids.device
+        slot = self._slots.get(dev)
+        if slot is None:
+            slot = self._slots[dev] = {
+                "op": _Operands(*(t.clone() for t in op.tensors())), "st": st.clone(),
+                "done": torch.zeros((), dtype=torch.bool, device=dev), "graph": None}
+        else:
+            # copied in before every call: a graph replays what its buffers
+            # hold, never the values of its first call
+            for dst, src in zip(slot["op"].tensors(), op.tensors()):
+                dst.copy_(src)
+            slot["st"].copy_(st)
+        slot["done"].zero_()
+        if dev.type == "cuda":
+            if slot["graph"] is None:
+                self._capture(slot, st)
+            body = slot["graph"].replay
+        else:
+            body = partial(self._step, slot)
+        self.last_bodies, self.last_polls = _drive(body, slot["done"], max_bodies, POLL_PERIOD)
+        return slot["st"].clone()
+
+
+# ---------------------------------------------------------------------------
+# public entry points (cached per static config → one capture each)
+# ---------------------------------------------------------------------------
+
+
+def _cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol, tie_tol, shrink, max_sel,
+             mp_chunk, ladder, selector):
+    # defaulted, keyword and positional calls, and numpy scalar arguments
+    # (np.int32 dims of a Granularity, np.bool_ flags), key identically
+    return (str(delta), str(mode), str(backend), int(n_attrs), int(cap), int(m), int(v_max),
+            float(tol), float(tie_tol), bool(shrink), int(max_sel), int(mp_chunk), bool(ladder),
+            str(selector))
+
+
+class _EngineStep:
+    """One greedy iteration, run eagerly (no graph) on the operands' device."""
+
+    def __init__(self, cfg: _Cfg):
+        self.cfg = cfg
+
+    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
+        cfg = self.cfg
+        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
+                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
+        return _solo_body(cfg, op, st)[0]
+
+
+class _EngineRun:
+    """The full reduction as one loop: ``run(st, x, d, w, n, theta_full,
+    core_attrs, core_count) -> final state``."""
+
+    def __init__(self, cfg: _Cfg):
+        self.cfg = cfg
+        self.loop = _Loop(partial(_solo_body, cfg))
+
+    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
+        cfg = self.cfg
+        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
+                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
+        # no run needs more bodies: every live one selects an attribute
+        max_bodies = min(cfg.n_attrs, int(core_count) + max(cfg.max_sel, 0))
+        return self.loop(op, st, max_bodies)
+
+
+def make_engine_step(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
+                     v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
+                     mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic"):
+    """One greedy iteration (evaluate → argmin → advance), for inspection;
+    ``make_engine_run`` loops the same body."""
+    return _make_engine_step(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
+                                       tie_tol, shrink, max_sel, mp_chunk, ladder, selector))
+
+
+@lru_cache(maxsize=None)
+def _make_engine_step(*key):
+    obs.counter("plar_engine_step_factories_total",
+                "distinct single-step engine configs traced").inc()
+    return _EngineStep(_Cfg(*key))
+
+
+def make_engine_run(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
+                    v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
+                    mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic"):
+    """The full reduction as one device-resident loop (single process).
+
+    Cached per normalized config: one runner, so one CUDA graph capture per
+    config and device, whatever the data (operands are copied into the
+    runner's buffers on every call).
+    """
+    return _make_engine_run(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
+                                      tie_tol, shrink, max_sel, mp_chunk, ladder, selector))
+
+
+@lru_cache(maxsize=None)
+def _make_engine_run(*key):
+    obs.counter("plar_engine_run_factories_total",
+                "distinct while_loop engine configs traced").inc()
+    return _EngineRun(_Cfg(*key))
+
+
+def _forced_attrs(n_attrs: int, forced) -> np.ndarray:
+    """The padded ``[max(A, 1)]`` forced-selection buffer (core attributes
+    and warm-start prefixes alike)."""
+    arr = np.zeros((max(n_attrs, 1),), np.int32)
+    arr[: len(forced)] = forced
+    return arr
+
+
+def init_state_from_reduct(runner, cap: int, n_attrs: int, valid, x, d, w, n,
+                           prefix) -> SelectionState:
+    """Seed a :class:`SelectionState` by folding ``prefix`` into fresh state.
+
+    Runs the runner's loop with the greedy phase disabled (``theta_full =
+    +inf`` makes the greedy condition false), so it executes exactly
+    ``len(prefix)`` forced folds.  The state carries the refined ``r_ids``
+    / ``k``, the Θ-history prefix recomputed on this granularity, and
+    ``remaining`` with the prefix cleared — ready for :func:`engine_resume`.
+    ``theta_full`` is an operand, so seeding captures nothing new.
+    """
+    st = init_state(cap, n_attrs, valid, device=_device_of(x, valid))
+    return runner(st, x, d, w, n, float("inf"), _forced_attrs(n_attrs, prefix), len(prefix))
+
+
+def engine_resume(runner, st: SelectionState, x, d, w, n, theta_full):
+    """Resume the greedy loop from a seeded state (no forced selections)."""
+    n_attrs = st.remaining.shape[0]
+    return runner(st, x, d, w, n, float(theta_full), _forced_attrs(n_attrs, ()), 0)
+
+
+def _device_of(*tensors) -> torch.device:
+    return next((t.device for t in tensors if isinstance(t, torch.Tensor)), torch.device("cpu"))
+
+
+def run_engine(runner, cap: int, n_attrs: int, valid, x, d, w, n, theta_full: float, core,
+               warm_start=None):
+    """Init state → loop → unpack: the device path of ``plar_reduce``.
+
+    With ``warm_start`` (a prefix; ``core`` must be empty) the loop is
+    seeded by :func:`init_state_from_reduct` and resumed by
+    :func:`engine_resume` — two calls of the same runner.
+
+    Returns ``(reduct, theta_history, iterations, n_evals,
+    per_iteration_s)``; ``per_iteration_s`` holds one entry per executed
+    body (``len(reduct)``, forced folds included), each the loop average.
+    The ``engine.dispatch`` span records the bodies replayed, the ``done``
+    polls and the captures of the run.
+    """
+    loop = runner.loop
+    captures_before, capture_s_before = loop.captures, loop.capture_s
+    t_loop = time.perf_counter()
+    with obs.span("engine.dispatch", n_attrs=n_attrs, cap=cap,
+                  warm=warm_start is not None) as sp:
+        if warm_start is not None:
+            if core:
+                raise ValueError("warm_start replaces the core prefix")
+            forced = list(warm_start)
+            st = init_state_from_reduct(runner, cap, n_attrs, valid, x, d, w, n, forced)
+            bodies, polls = loop.last_bodies, loop.last_polls
+            fin = engine_resume(runner, st, x, d, w, n, theta_full)
+        else:
+            forced = list(core)
+            bodies = polls = 0
+            st = init_state(cap, n_attrs, valid, device=_device_of(x, valid))
+            fin = runner(st, x, d, w, n, theta_full, _forced_attrs(n_attrs, forced), len(forced))
+        bodies += loop.last_bodies
+        polls += loop.last_polls
+        reduct, hist, iters, n_evals = unpack_result(fin, len(forced))
+        loop_s = time.perf_counter() - t_loop
+        compiled = loop.captures > captures_before
+        sp.set(k=len(reduct), iterations=iters, compiled=compiled, bodies=bodies,
+               polls=polls, captures=loop.captures - captures_before,
+               capture_s=loop.capture_s - capture_s_before, loop_s=loop_s)
+    obs.counter("plar_engine_runs_total",
+                "engine while_loop dispatch sequences completed").inc()
+    if compiled:
+        obs.counter("plar_engine_compiles_total",
+                    "engine dispatches that paid a fresh trace/compile").inc()
+    obs.gauge("plar_engine_last_k",
+              "reduct size of the most recent engine run").set(len(reduct))
+    obs.gauge("plar_engine_last_iterations",
+              "greedy iterations of the most recent engine run").set(iters)
+    n_bodies = len(reduct)
+    per_body = loop_s / n_bodies if n_bodies else 0.0
+    if n_bodies:
+        obs.histogram("plar_engine_iteration_seconds",
+                      "loop-average seconds per executed engine loop body").observe(per_body)
+    return reduct, hist, iters, n_evals, [per_body] * n_bodies
+
+
+def _to_host(order: torch.Tensor, hist: torch.Tensor, nsel: torch.Tensor):
+    """``order``, ``theta_history`` and ``n_selected`` in one device→host
+    transfer (the f32 history travels as its int32 bits)."""
+    flat = torch.cat([order.reshape(-1), hist.reshape(-1).view(torch.int32),
+                      nsel.reshape(-1)]).cpu().numpy()
+    a, b = order.numel(), hist.numel()
+    return (flat[:a].reshape(order.shape), flat[a: a + b].view(np.float32).reshape(hist.shape),
+            flat[a + b:].reshape(nsel.shape))
+
+
+def unpack_result(fin: SelectionState, core_count: int):
+    """Host-side unpack: (reduct, theta_history, greedy_iterations, n_evals).
+
+    The single device→host transfer of the whole greedy phase.
+    """
+    order, hist, nsel = _to_host(fin.order, fin.theta_history, fin.n_selected)
+    nsel = int(nsel)
+    reduct = [int(a) for a in order[:nsel]]
+    theta_hist = [float(t) for t in hist[:nsel]]
+    iters = nsel - core_count
+    # the engine evaluates ALL A candidates each greedy iteration (selected
+    # ones are masked after the fact); report that count
+    return reduct, theta_hist, iters, iters * fin.remaining.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# stacked multi-config engine (DESIGN.md §3.8)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EnsembleOperands:
+    """Per-config parameters of the stacked engine, leading axis ``[C]``.
+
+      tol         [C]           f32   stopping tolerance
+      tie_tol     [C]           f32   argmin tie band
+      max_sel     [C]           i32   max_features (n_attrs when unbounded)
+      shrink      [C]           bool  FSPA universe shrinking
+      theta_full  [C]           f32   Θ(D|C) stopping target (per-config w)
+      n           [C]           i32   total row weight |U|
+      w           [C, cap]      i32   granule weights (bagged resample seam)
+      core_attrs  [C, max(A,1)] i32   forced-selection prefix, padded
+      core_count  [C]           i32   number of forced selections
+
+    Each config's measure is static: it is part of the runner's key
+    (:func:`make_ensemble_run`'s ``deltas``), and each config's slice of the
+    body evaluates exactly that measure.
+    """
+
+    tol: torch.Tensor
+    tie_tol: torch.Tensor
+    max_sel: torch.Tensor
+    shrink: torch.Tensor
+    theta_full: torch.Tensor
+    n: torch.Tensor
+    w: torch.Tensor
+    core_attrs: torch.Tensor
+    core_count: torch.Tensor
+
+    @property
+    def n_cfgs(self) -> int:
+        return self.tol.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class _EnsCfg:
+    """Static configuration of the stacked engine: the shared evaluation
+    strategy, the shapes, and each config's measure."""
+
+    mode: str            # "incremental" | "spark"
+    backend: str         # ENSEMBLE_BACKENDS
+    deltas: Tuple[str, ...]
+    n_attrs: int
+    cap: int
+    m: int
+    v_max: int
+    mp_chunk: int
+    ladder: bool = False
+    selector: str = "heuristic"
+
+    @property
+    def n_cfgs(self) -> int:
+        return len(self.deltas)
+
+    @property
+    def n_bins(self) -> int:
+        return self.cap * self.v_max
+
+
+def _ensemble_body(cfg: _EnsCfg, op: _Operands, st: SelectionState):
+    """One stacked body: every config's solo iteration, each frozen once its
+    own condition is false (conditions are monotone, so a frozen config
+    stays frozen and its trajectory is exactly its solo one)."""
+    go = _cond(st, op, cfg.n_attrs)                            # [C]
+    new = SelectionState.stack([_select(cfg, delta, st.config(c), op.config(c))
+                                for c, delta in enumerate(cfg.deltas)])
+    out = st.where(go, new)
+    return out, ~_cond(out, op, cfg.n_attrs).any()
+
+
+class _EnsembleRun:
+    """The whole grid as one loop: ``run(st_stack, x, d, ops) -> st_stack``."""
+
+    def __init__(self, cfg: _EnsCfg):
+        self.cfg = cfg
+        self.loop = _Loop(partial(_ensemble_body, cfg))
+
+    def __call__(self, st: SelectionState, x, d, ops: EnsembleOperands) -> SelectionState:
+        cfg = self.cfg
+        if ops.n_cfgs != cfg.n_cfgs:
+            raise ValueError(f"{ops.n_cfgs} operand configs for a runner of {cfg.n_cfgs}")
+        op = _operands(cfg, x, d, ops.w, ops.n, ops.theta_full, ops.core_attrs,
+                       ops.core_count, ops.tol, ops.tie_tol, ops.max_sel, ops.shrink,
+                       st.r_ids.device)
+        bounds = (op.core_count.to(torch.int64) + op.max_sel.clamp(min=0)).tolist()
+        return self.loop(op, st, min(cfg.n_attrs, max(bounds)))
+
+
+def make_ensemble_run(mode: str, backend: str, deltas: Sequence[str], n_attrs: int, cap: int,
+                      m: int, v_max: int, mp_chunk: int = 64, ladder: bool = False,
+                      selector: str = "analytic"):
+    """The whole config grid as one loop (one capture per grid and device).
+
+    Returns ``run(st_stack, x, d, ops) -> st_stack`` where every
+    :class:`SelectionState` field carries a leading ``[len(deltas)]`` axis
+    and ``ops`` is the :class:`EnsembleOperands` stack.  ``deltas`` names
+    each config's measure.
+    """
+    if backend not in ENSEMBLE_BACKENDS:
+        raise ValueError(
+            f"ensemble engine does not support backend={backend!r} "
+            f"(one of: {', '.join(ENSEMBLE_BACKENDS)})")
+    if ladder and backend != "sweep_xla":
+        raise ValueError(
+            "ensemble ladder requires backend='sweep_xla': the stacked loop "
+            "shares one rung across configs, which is only bit-safe under the "
+            "§5.3 sweep rung invariance")
+    deltas = tuple(str(dd) for dd in deltas)
+    bad = [dd for dd in deltas if dd not in ENSEMBLE_DELTAS]
+    if bad:
+        raise ValueError(f"unknown measures {bad} (one of: {', '.join(ENSEMBLE_DELTAS)})")
+    return _make_ensemble_run(str(mode), str(backend), deltas, int(n_attrs), int(cap), int(m),
+                              int(v_max), int(mp_chunk), bool(ladder), str(selector))
+
+
+@lru_cache(maxsize=None)
+def _make_ensemble_run(*key):
+    obs.counter("plar_engine_ensemble_factories_total",
+                "distinct stacked-engine configs traced").inc()
+    return _EnsembleRun(_EnsCfg(*key))
+
+
+def init_ensemble_state(cap: int, n_attrs: int, valid, n_cfgs: int, device=None) -> SelectionState:
+    """Fresh stacked state: :func:`init_state` repeated on a leading [C]."""
+    return SelectionState.stack([init_state(cap, n_attrs, valid, device)] * n_cfgs)
+
+
+def run_ensemble(runner, cap: int, n_attrs: int, valid, x, d, ops: EnsembleOperands):
+    """Init stacked state → one loop → final stacked state.
+
+    Returns ``(final_state, loop_s)``; unpack per config with
+    :func:`unpack_ensemble_result`.
+    """
+    loop = runner.loop
+    captures_before, capture_s_before = loop.captures, loop.capture_s
+    t0 = time.perf_counter()
+    with obs.span("engine.dispatch_ensemble", configs=ops.n_cfgs, n_attrs=n_attrs,
+                  cap=cap) as sp:
+        st = init_ensemble_state(cap, n_attrs, valid, ops.n_cfgs, device=_device_of(x, valid))
+        fin = runner(st, x, d, ops)
+        if fin.n_selected.is_cuda:
+            torch.cuda.synchronize(fin.n_selected.device)   # the loop's time, not its enqueue
+        sp.set(compiled=loop.captures > captures_before, bodies=loop.last_bodies,
+               polls=loop.last_polls, captures=loop.captures - captures_before,
+               capture_s=loop.capture_s - capture_s_before)
+    obs.counter("plar_engine_ensemble_runs_total",
+                "stacked-engine dispatches completed").inc()
+    return fin, time.perf_counter() - t0
+
+
+def unpack_ensemble_result(fin: SelectionState, core_counts) -> List[tuple]:
+    """Stacked final state → per-config (reduct, theta_history, iterations,
+    n_evals), in one device→host transfer for the whole grid."""
+    order, hist, nsel = _to_host(fin.order, fin.theta_history, fin.n_selected)
+    n_attrs = fin.remaining.shape[-1]
+    out = []
+    for c, cc in enumerate(core_counts):
+        ns = int(nsel[c])
+        iters = ns - int(cc)
+        out.append(([int(a) for a in order[c, :ns]], [float(t) for t in hist[c, :ns]],
+                    iters, iters * n_attrs))
+    return out

@@ -47,6 +47,7 @@ __all__ = [
     "with_capacity",
     "next_pow2",
     "column_terms",
+    "dyn_column_terms",
     "row_fingerprints",
     "regranulate",
     "pack_ids",
@@ -110,6 +111,29 @@ def column_terms(x_col: torch.Tensor, col_index: int, n_cols: int, seed: int) ->
     cs = int(seeds[0, col_index])
     mult = int(seeds[1, col_index])
     return _mul32(_mix32(_as_u32(x_col) ^ cs), mult)
+
+
+def _device_column_seeds(n_cols: int, seed: int, device) -> torch.Tensor:
+    """:func:`_column_seeds` computed on ``device`` (int64 ``[2, n_cols]``).
+
+    The same uint32 arithmetic in int64 with 32-bit masks, from an
+    ``arange``: no host table is copied to the device, so it runs inside a
+    captured CUDA graph.
+    """
+    idx = torch.arange(n_cols, dtype=torch.int64, device=device)
+    col_seed = (_mul32(idx, int(_GOLDEN)) + ((seed * 0x85EBCA6B) & _MASK32)) & _MASK32
+    mult = _mul32(col_seed ^ (col_seed >> 13), 0xC2B2AE35) | 1
+    return torch.stack([col_seed, mult])
+
+
+def dyn_column_terms(x: torch.Tensor, col: torch.Tensor, seed: int) -> torch.Tensor:
+    """:func:`column_terms` for a column index that is a tensor on ``x``'s
+    device: the column and its (seed, multiplier) pair are gathered on the
+    device, with no host read of ``col``."""
+    col = col.reshape(1).to(torch.int64)
+    seeds = _device_column_seeds(x.shape[1], seed, x.device).index_select(1, col)
+    x_col = x.index_select(1, col)[:, 0]
+    return _mul32(_mix32(_as_u32(x_col) ^ seeds[0]), seeds[1])
 
 
 def row_fingerprints(x: torch.Tensor, seed: int) -> torch.Tensor:

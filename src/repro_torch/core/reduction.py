@@ -13,10 +13,14 @@ iteration.
 * PLAR = GrC init + candidate chunks + the incremental packed-id evaluation
   (``mode="spark"`` gives the paper-faithful loop).
 
-The JAX package's device-resident ``lax.while_loop`` engine is not ported
-yet: ``engine="auto"`` resolves to the host loop here (the JAX tests assert
-host == device byte parity, so the results are the same) and
-``engine="device"`` raises.
+Two greedy loops, as in the JAX package: the device-resident engine
+(``core/engine.py``: one captured body replayed on the card, no host read
+but a ``done`` flag) and the host loop (one device→host sync per
+iteration, the only loop that runs the CUDA Θ kernels).  ``engine="auto"``
+takes the device engine for :data:`DEVICE_BACKENDS` and the host loop
+otherwise; both record byte-identical Θ histories.
+:func:`plar_reduce_ensemble` runs a grid of configs over one granularity in
+one stacked engine loop.
 """
 from __future__ import annotations
 
@@ -30,12 +34,26 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 from . import measures
+from .engine import (
+    _LOCAL,
+    DEVICE_BACKENDS,
+    ENSEMBLE_BACKENDS,
+    ENSEMBLE_DELTAS,
+    EnsembleOperands,
+    _advance,
+    _Cfg,
+    _spark_thetas,
+    make_engine_run,
+    make_ensemble_run,
+    run_engine,
+    run_ensemble,
+    unpack_ensemble_result,
+)
 from .granularity import (
     Granularity,
     build_granularity,
     build_granularity_streaming,
     column_terms,
-    compact_ids,
     next_pow2,
     pack_ids,
     row_fingerprints,
@@ -47,14 +65,16 @@ from .plan import (
     candidate_theta,
     contingency_from_ids,
     ids_by_sort,
-    ladder_rungs,
     rung_for,
     subset_ids,
 )
 
-__all__ = ["ReductionResult", "plar_reduce", "har_reduce", "fspa_reduce",
-           "raw_granularity", "resolve_granularity", "sum_terms",
-           "DEVICE_BACKENDS"]
+__all__ = ["ReductionResult", "plar_reduce", "plar_reduce_ensemble",
+           "har_reduce", "fspa_reduce", "raw_granularity",
+           "resolve_granularity", "sum_terms", "bagged_weights",
+           "expand_ensemble_grid", "normalize_ensemble_configs",
+           "partition_reduce_params", "DEVICE_BACKENDS",
+           "ENSEMBLE_SHARED_KEYS"]
 
 _MODES = ("incremental", "spark")
 _BACKENDS = ("segment", "onehot", "pallas", "fused", "fused_xla", "sweep",
@@ -62,24 +82,24 @@ _BACKENDS = ("segment", "onehot", "pallas", "fused", "fused_xla", "sweep",
 _ENGINES = ("auto", "host", "device")
 _MASK32 = 0xFFFFFFFF
 
-# Backends the JAX package's device engine runs (``repro.core.engine``).  The
-# host loop evaluates them at the engine's full static bound cap·V, so their
-# Θ values group exactly as on that engine; the kernel backends use the
-# cheaper pow2 bound next_pow2(K)·V.
-DEVICE_BACKENDS = ("segment", "onehot", "fused_xla", "sweep_xla")
 
+def _resolve_engine(engine: str, backend: str) -> str:
+    """Validate the engine knob and resolve ``auto``.
 
-def _resolve_engine(engine: str) -> str:
-    """Validate the engine knob; ``auto`` is the host loop in the port."""
+    ``auto`` prefers the device-resident engine (core/engine.py) and falls
+    back to the host loop only where the device engine cannot run: the CUDA
+    kernel backends (``pallas``/``fused``/``sweep``).
+    """
     if engine not in _ENGINES:
         raise ValueError(
             f"unknown engine: {engine!r} (one of: {', '.join(_ENGINES)})")
-    if engine == "device":
-        raise NotImplementedError(
-            "engine='device' (the device-resident greedy loop) is not ported "
-            "yet: ROADMAP.md, 'Modules to port', item 4 (device engine); use "
-            "engine='host' or 'auto'")
-    return "host"
+    if engine == "device" and backend not in DEVICE_BACKENDS:
+        raise ValueError(
+            f"engine='device' does not support backend={backend!r} "
+            f"(one of: {', '.join(DEVICE_BACKENDS)}); use engine='host'")
+    if engine == "auto":
+        return "device" if backend in DEVICE_BACKENDS else "host"
+    return engine
 
 
 @dataclasses.dataclass
@@ -120,31 +140,6 @@ def raw_granularity(x, d, *, n_dec: int, v_max: int,
 # ---------------------------------------------------------------------------
 # inner pieces
 # ---------------------------------------------------------------------------
-
-
-def _advance(r_ids, x_col, d, w, active, n, *, n_bins, v_max, m, delta):
-    """Fold one attribute into the class ids: pack, compact, Θ, purity."""
-    packed = pack_ids(r_ids, x_col, v_max)
-    new_ids, k_new, _ = compact_ids(packed, active, n_bins)
-    cont = contingency_from_ids(new_ids, d, w, active, n_bins=n_bins, m=m)
-    theta = measures.evaluate(delta, cont, n)
-    # purity per class → per granule (for FSPA-style shrinking)
-    e = cont.sum(dim=-1)
-    pure_row = (cont.amax(dim=-1) == e) & (e > 0)
-    g_pure = pure_row[new_ids.to(torch.int64)] & active
-    return new_ids, k_new, theta, g_pure
-
-
-def _spark_thetas(delta, hR1, hR2, cols, gran, active, n, n_bins):
-    """Paper-faithful: re-key granules from scratch + sort per candidate."""
-    out = []
-    for col in cols:
-        t1 = column_terms(gran.x[:, col], col, gran.n_attrs, 0)
-        t2 = column_terms(gran.x[:, col], col, gran.n_attrs, 7919)
-        ids, _k = ids_by_sort([(hR2 + t2) & _MASK32, (hR1 + t1) & _MASK32], active)
-        cont = contingency_from_ids(ids, gran.d, gran.w, active, n_bins=n_bins, m=gran.n_dec)
-        out.append(measures.evaluate(delta, cont, n))
-    return torch.stack(out)
 
 
 def _core_inner_thetas(gran: Granularity, delta: str, *, exact: bool) -> np.ndarray:
@@ -328,7 +323,7 @@ def plar_reduce(
     shrink: bool = False,                # FSPA universe shrinking
     exact: bool = True,
     compute_core: bool = True,
-    engine: str = "auto",                # "auto"/"host": the host loop
+    engine: str = "auto",                # "device" loop | "host" loop | "auto"
     warm_start: Optional[Sequence[int]] = None,  # resume greedy from this prefix
     device: DeviceLike = "cuda",
 ) -> ReductionResult:
@@ -337,7 +332,9 @@ def plar_reduce(
     ``warm_start`` seeds the selection with a previously chosen prefix: the
     prefix attributes are folded as forced selections and the greedy loop
     resumes from there.  It replaces the core computation (``core`` comes
-    back empty).  ``max_features`` caps only further greedy additions.
+    back empty) and, on the device engine, runs as a seed + resume pair of
+    calls of the same runner (one capture).  ``max_features`` caps only
+    further greedy additions.
     """
     t0 = time.perf_counter()
     if mode not in _MODES:
@@ -350,7 +347,7 @@ def plar_reduce(
         raise ValueError(
             f"unknown selector: {selector!r} "
             f"(one of: {', '.join(SELECTOR_MODES)})")
-    _resolve_engine(engine)
+    engine = _resolve_engine(engine, backend)
     gran = resolve_granularity(
         x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
         exact=exact, chunk_rows=chunk_rows, device=device)
@@ -381,6 +378,26 @@ def plar_reduce(
         core = [int(a) for a in range(A) if sig[a] > eps + tie_tol]
         n_evals += A
     forced = core if warm is None else warm
+    max_sel = int(max_features) if max_features is not None else A
+    cfg = _Cfg(delta, mode, backend, A, cap, m, v, float(tol), float(tie_tol), bool(shrink),
+               max_sel, int(mp_chunk), bool(ladder), str(selector))
+
+    if engine == "device":
+        # core folds + greedy loop + stopping rule as one device-resident
+        # loop (core/engine.py), one device→host transfer at the end
+        reduct, theta_hist, iterations, ev, per_iter = run_engine(
+            make_engine_run(*dataclasses.astuple(cfg)), cap, A, gran.valid, gran.x, gran.d,
+            gran.w, n, theta_full, core, warm_start=warm)
+        return ReductionResult(
+            reduct=reduct,
+            core=core,
+            theta_full=theta_full,
+            theta_history=theta_hist,
+            iterations=iterations,
+            n_evaluations=n_evals + ev,
+            elapsed_s=time.perf_counter() - t0,
+            per_iteration_s=per_iter,
+        )
 
     # --- greedy loop state (the host loop: one sync per iteration) ---
     r_ids = torch.zeros((cap,), dtype=torch.int32, device=dev)
@@ -392,18 +409,16 @@ def plar_reduce(
     theta_hist: List[float] = []
     per_iter_s: List[float] = []
 
-    # The advance uses the full bin bound cap·V, whatever the backend: Θ(D|R)
-    # is summed over the same rows on every path, which keeps theta histories
-    # byte-identical across every (backend, ladder) combination.
+    # The advance is the device engine's, at the full bin bound cap·V
+    # whatever the backend: Θ(D|R) is summed over the same rows on every
+    # path, which keeps theta histories byte-identical across engines,
+    # backends and the ladder.
     def adv(r, a_col, act):
-        return _advance(r, a_col, gran.d, gran.w, act, n, n_bins=cap * v,
-                        v_max=v, m=m, delta=delta)
-
-    rungs = ladder_rungs(cap * v, selector=selector, g=cap, m=m)
+        return _advance(cfg, _LOCAL, r, a_col, gran.d, gran.w, act, n)
 
     def _eval_bins_for(k_):
         if ladder:
-            return rung_for(k_, v, rungs)
+            return rung_for(k_, v, cfg.rungs)
         # the XLA-twin backends keep the full bound (the JAX device engine's
         # grouping); the kernel backends take the cheaper pow2 bound
         return cap * v if backend in DEVICE_BACKENDS else next_pow2(max(k_, 1)) * v
@@ -453,7 +468,8 @@ def plar_reduce(
                 hR2 = torch.zeros((cap,), dtype=torch.int64, device=dev)
             for s in range(0, len(remaining), nc):
                 cols = remaining[s: s + nc]
-                vals = _spark_thetas(delta, hR1, hR2, cols, gran, active, n, cap) + corr
+                vals = _spark_thetas(delta, hR1, hR2, cols, gran.x, gran.d, gran.w, active, n,
+                                     n_bins=cap, m=m) + corr
                 thetas[s: s + len(cols)] = vals.cpu().numpy()
         else:
             eval_bins = _eval_bins_for(k)
@@ -497,6 +513,257 @@ def plar_reduce(
         elapsed_s=time.perf_counter() - t0,
         per_iteration_s=per_iter_s,
     )
+
+
+# ---------------------------------------------------------------------------
+# reduct ensembles: one stacked engine loop for a whole config grid
+# ---------------------------------------------------------------------------
+
+
+# Per-config knobs the ensemble grid accepts; everything else (mode, backend,
+# ladder, mp_chunk, ingestion) is shared — static choices of the runner.
+_ENSEMBLE_DEFAULTS = {
+    "delta": "PR",
+    "tol": 1e-6,
+    "tie_tol": 1e-5,
+    "max_features": None,
+    "shrink": False,
+    "compute_core": True,
+    "eps": 0.0,
+    "seed": None,          # bagged row-weight resample seed (None = no bag)
+    "warm_start": None,    # forced greedy-resume prefix (replaces the core)
+}
+
+# Driver kwargs of :func:`plar_reduce` that the stacked engine *shares*
+# across a grid (static choices + ingestion) — the complement of
+# ``_ENSEMBLE_DEFAULTS``: per-config knobs may differ, shared knobs must agree.
+ENSEMBLE_SHARED_KEYS = ("mode", "backend", "ladder", "selector", "mp_chunk",
+                        "exact", "grc_init", "chunk_rows")
+
+
+def partition_reduce_params(delta: str, params: dict):
+    """Split one ``plar_reduce``-style ``(delta, params)`` query into the
+    ``(config, shared)`` pair the stacked engine takes, or return ``None``
+    when the query cannot ride it (a host-only backend, ``engine="host"``,
+    an unknown knob, a ladder off ``sweep_xla``)."""
+    if delta not in ENSEMBLE_DELTAS:
+        return None
+    config = {"delta": delta}
+    shared = {}
+    for k, v in params.items():
+        if k in _ENSEMBLE_DEFAULTS and k != "delta":
+            config[k] = v
+        elif k in ENSEMBLE_SHARED_KEYS:
+            shared[k] = v
+        else:
+            return None
+    if shared.get("backend", "segment") not in ENSEMBLE_BACKENDS:
+        return None
+    if shared.get("ladder") and shared.get("backend") != "sweep_xla":
+        return None
+    if shared.get("mode", "incremental") not in _MODES:
+        return None
+    return config, shared
+
+
+def expand_ensemble_grid(configs, seeds=None):
+    """Expand ``configs`` (dicts or bare measure names) × ``seeds``.
+
+    ``seeds`` crosses every config with one bagged replica per seed
+    (``configs=["PR"], seeds=range(8)`` is an 8-bag PR ensemble); configs
+    outer, seeds inner.  A config carrying its own ``seed`` cannot be
+    combined with ``seeds=``.  Returns plain dicts, defaults not yet filled.
+    """
+    expanded = []
+    for c in configs:
+        if isinstance(c, str):
+            c = {"delta": c}
+        c = dict(c)
+        if seeds is None:
+            expanded.append(c)
+            continue
+        if c.get("seed") is not None:
+            raise ValueError(
+                "pass bag seeds either per config ('seed') or via seeds=, "
+                "not both")
+        for s in seeds:
+            expanded.append({**c, "seed": int(s)})
+    return expanded
+
+
+def normalize_ensemble_configs(configs, seeds=None) -> List[dict]:
+    """Validate + default-fill an ensemble grid (see ``_ENSEMBLE_DEFAULTS``)."""
+    expanded = expand_ensemble_grid(configs, seeds)
+    if not expanded:
+        raise ValueError("ensemble configs must be non-empty")
+    out = []
+    for c in expanded:
+        unknown = sorted(set(c) - set(_ENSEMBLE_DEFAULTS))
+        if unknown:
+            raise ValueError(
+                f"unknown ensemble config keys {unknown} "
+                f"(one of: {', '.join(sorted(_ENSEMBLE_DEFAULTS))})")
+        full = {**_ENSEMBLE_DEFAULTS, **c}
+        if full["delta"] not in ENSEMBLE_DELTAS:
+            raise ValueError(
+                f"unknown measure: {full['delta']!r} "
+                f"(one of: {', '.join(ENSEMBLE_DELTAS)})")
+        if full["warm_start"] is not None:
+            # range re-checked by the driver once A is known
+            full["warm_start"] = _validate_warm_start(full["warm_start"], None)
+        out.append(full)
+    return out
+
+
+def bagged_weights(gran: Granularity, seed: int) -> np.ndarray:
+    """Bootstrap resample of the row multiset as granule weights ``[cap]``.
+
+    Draws ``n_total`` rows with replacement from the live rows — a
+    multinomial over granules weighted by ``w`` — with numpy's
+    ``default_rng(seed)``, so the bags are the JAX package's.  The
+    granularity itself is shared by every bag; zero-weight granules stay
+    live and contribute 0 to every contingency.
+    """
+    w = gran.w.cpu().numpy().astype(np.int64)
+    valid = gran.valid.cpu().numpy()
+    live = np.where(valid, w, 0)
+    total = int(live.sum())
+    if total <= 0:
+        raise ValueError("cannot bag an empty granularity")
+    rng = np.random.default_rng(int(seed))
+    return rng.multinomial(total, live / live.sum()).astype(np.int32)
+
+
+def plar_reduce_ensemble(
+    x=None,
+    d=None,
+    *,
+    source=None,                         # Granularity | GranuleSource (alt. to x, d)
+    configs: Sequence,                   # per-config dicts (or measure names)
+    seeds: Optional[Sequence[int]] = None,  # bag grid: configs × seeds
+    chunk_rows: int = 65536,
+    n_dec: Optional[int] = None,
+    v_max: Optional[int] = None,
+    mode: str = "incremental",
+    backend: str = "segment",            # ENSEMBLE_BACKENDS
+    ladder: bool = False,                # requires backend="sweep_xla"
+    selector: str = "analytic",
+    mp_chunk: int = 64,
+    grc_init: bool = True,
+    exact: bool = True,
+    device: DeviceLike = "cuda",
+) -> List[ReductionResult]:
+    """A grid of PLAR reductions over ONE granularity in ONE engine loop.
+
+    Every config runs the greedy selection ``plar_reduce(engine="device")``
+    would, byte-identical per config (reduct, core, Θ history), in one
+    stacked loop (one capture per grid).  Per-config knobs: ``delta``,
+    ``tol``, ``tie_tol``, ``max_features``, ``shrink``, ``compute_core``,
+    ``eps``, ``seed`` (a bagged row-weight resample, :func:`bagged_weights`:
+    its solo twin is ``plar_reduce`` on the same granularity with ``w``
+    replaced) and ``warm_start`` (a forced prefix replacing the core).
+    Shared knobs (``mode``, ``backend``, ``ladder``, ``mp_chunk``) are
+    static choices of the runner.
+
+    Results come back in grid order (``configs`` × ``seeds``); ``elapsed_s``
+    is the per-config share of the wall clock, and ``per_iteration_s``
+    entries are the loop average over every executed body in the grid.
+    """
+    t0 = time.perf_counter()
+    if mode not in _MODES:
+        raise ValueError(
+            f"unknown mode: {mode!r} (one of: {', '.join(_MODES)})")
+    if backend not in ENSEMBLE_BACKENDS:
+        raise ValueError(
+            f"ensemble backend must be one of {', '.join(ENSEMBLE_BACKENDS)}; "
+            f"got {backend!r} (run plar_reduce per config for host-only "
+            f"backends)")
+    if selector not in SELECTOR_MODES:
+        raise ValueError(
+            f"unknown selector: {selector!r} (one of: {', '.join(SELECTOR_MODES)})")
+    cfgs = normalize_ensemble_configs(configs, seeds)
+    gran = resolve_granularity(
+        x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
+        exact=exact, chunk_rows=chunk_rows, device=device)
+    _check_codes(gran)
+    dev = gran.device
+
+    A = gran.n_attrs
+    m = gran.n_dec
+    cap = gran.capacity
+    C = len(cfgs)
+
+    # Θ(D|C) ids are w-independent: computed once for the whole grid
+    ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
+
+    base_w = gran.w.cpu().numpy().astype(np.int32)
+    valid = gran.valid.cpu().numpy()
+    ws = np.zeros((C, cap), np.int32)
+    core_attrs = np.zeros((C, max(A, 1)), np.int32)
+    core_counts = np.zeros((C,), np.int32)
+    theta_fulls = np.zeros((C,), np.float64)
+    ns = np.zeros((C,), np.int64)
+    cores: List[List[int]] = []
+    evals0 = np.zeros((C,), np.int64)
+
+    for j, c in enumerate(cfgs):
+        w_j = bagged_weights(gran, c["seed"]) if c["seed"] is not None else base_w
+        n_j = int(np.where(valid, w_j, 0).sum())
+        ws[j] = w_j
+        ns[j] = n_j
+        w_t = torch.as_tensor(w_j, device=dev)
+        n_t = torch.tensor(n_j, dtype=torch.int32, device=dev)
+        cont_j = contingency_from_ids(ids_c, gran.d, w_t, gran.valid, n_bins=cap, m=m)
+        theta_fulls[j] = float(measures.evaluate(c["delta"], cont_j, n_t))
+
+        core_j: List[int] = []
+        if c["warm_start"] is not None:
+            # the prefix stands in for the core, as in plar_reduce(warm_start=)
+            forced_j = _validate_warm_start(c["warm_start"], A)
+            core_attrs[j, : len(forced_j)] = forced_j
+            core_counts[j] = len(forced_j)
+        elif c["compute_core"]:
+            gran_j = gran if c["seed"] is None else dataclasses.replace(gran, w=w_t, n_total=n_t)
+            inner = _core_inner_thetas(gran_j, c["delta"], exact=exact)
+            sig = inner - theta_fulls[j]
+            core_j = [int(a) for a in range(A) if sig[a] > c["eps"] + c["tie_tol"]]
+            evals0[j] = A
+            core_attrs[j, : len(core_j)] = core_j
+            core_counts[j] = len(core_j)
+        cores.append(core_j)
+
+    ops = EnsembleOperands(
+        tol=torch.tensor([c["tol"] for c in cfgs], dtype=torch.float32, device=dev),
+        tie_tol=torch.tensor([c["tie_tol"] for c in cfgs], dtype=torch.float32, device=dev),
+        max_sel=torch.tensor([A if c["max_features"] is None else int(c["max_features"])
+                              for c in cfgs], dtype=torch.int32, device=dev),
+        shrink=torch.tensor([bool(c["shrink"]) for c in cfgs], device=dev),
+        theta_full=torch.tensor(theta_fulls, dtype=torch.float32, device=dev),
+        n=torch.tensor(ns, dtype=torch.int32, device=dev),
+        w=torch.as_tensor(ws, device=dev),
+        core_attrs=torch.as_tensor(core_attrs, device=dev),
+        core_count=torch.as_tensor(core_counts, device=dev),
+    )
+    runner = make_ensemble_run(mode, backend, [c["delta"] for c in cfgs], A, cap, m,
+                               gran.v_max, int(mp_chunk), bool(ladder), str(selector))
+    fin, loop_s = run_ensemble(runner, cap, A, gran.valid, gran.x, gran.d, ops)
+    per_cfg = unpack_ensemble_result(fin, core_counts)
+
+    elapsed = time.perf_counter() - t0
+    total_bodies = sum(len(r[0]) for r in per_cfg)
+    per_body = loop_s / total_bodies if total_bodies else 0.0
+    return [
+        ReductionResult(
+            reduct=reduct,
+            core=cores[j],
+            theta_full=float(theta_fulls[j]),
+            theta_history=hist,
+            iterations=iters,
+            n_evaluations=int(evals0[j]) + ev,
+            elapsed_s=elapsed / C,
+            per_iteration_s=[per_body] * len(reduct),
+        )
+        for j, (reduct, hist, iters, ev) in enumerate(per_cfg)]
 
 
 def sum_terms(x: torch.Tensor, cols: Sequence[int], seed: int) -> torch.Tensor:

@@ -5,8 +5,10 @@
     python -m repro_torch.launch.reduce --dataset mushroom --device cpu
 
 The flags of ``repro.launch.reduce``, plus ``--device {cuda,cpu}`` (default
-``cuda``: no card is an error, never a silent CPU run).  ``--distributed``
-and ``--ensemble`` are not ported yet and exit with an error.
+``cuda``: no card is an error, never a silent CPU run).  ``--ensemble
+MEASURES|all`` (with ``--bags N``) runs the measure grid as one stacked
+engine loop and prints ``"ensemble": [...]``, one entry a config.
+``--distributed`` is not ported yet and exits with an error.
 
 ``--stream`` runs the dataset at its full Table-5 shape through streaming
 GrC ingestion (chunks of ``--chunk-rows``); ``--max-rows``/``--max-attrs``
@@ -43,8 +45,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="K-adaptive bin ladder for the candidate sweep "
                          "(DESIGN.md §5.3)")
     ap.add_argument("--engine", default="auto", choices=["auto", "host", "device"],
-                    help="greedy loop: auto = host loop in the port (the "
-                         "device-resident loop is not ported yet)")
+                    help="greedy loop: device = the device-resident loop (a "
+                         "CUDA graph replayed on a card), host = the host "
+                         "loop; auto = device for segment/onehot/fused_xla/"
+                         "sweep_xla, host for the kernel backends")
     ap.add_argument("--selector", default="analytic",
                     choices=["heuristic", "analytic", "pinned"],
                     help="tile / ladder-rung selection; the port's kernels use "
@@ -53,9 +57,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="FSPA universe shrinking (drop pure classes)")
     ap.add_argument("--mp-chunk", type=int, default=64)
     ap.add_argument("--ensemble", default=None, metavar="MEASURES",
-                    help="not ported yet")
+                    help="comma-separated measure grid (or 'all' = "
+                         "PR,SCE,LCE,CCE) run as ONE stacked engine loop; "
+                         "--shrink/--max-features apply to every member")
     ap.add_argument("--bags", type=int, default=None, metavar="N",
-                    help="not ported yet (with --ensemble)")
+                    help="with --ensemble: N bagged (bootstrap-reweighted) "
+                         "replicas per measure, seeds 0..N-1")
     ap.add_argument("--no-grc", action="store_true")
     ap.add_argument("--distributed", action="store_true", help="not ported yet")
     ap.add_argument("--mesh", default="4,2", help="data,model (not ported yet)")
@@ -72,15 +79,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
 
-    not_ported = [name for name, on in [("--distributed", args.distributed),
-                                        ("--ensemble", args.ensemble is not None),
-                                        ("--bags", args.bags is not None)] if on]
-    if not_ported:
-        ap.error(f"{', '.join(not_ported)} not ported to repro_torch yet "
-                 "(ROADMAP.md: ensemble engine, mesh driver); use "
-                 "python -m repro.launch.reduce")
+    if args.distributed:
+        ap.error("--distributed not ported to repro_torch yet (ROADMAP.md: "
+                 "mesh driver); use python -m repro.launch.reduce")
 
-    from repro_torch.core.reduction import plar_reduce, resolve_granularity
+    from repro_torch.core.engine import ENSEMBLE_BACKENDS
+    from repro_torch.core.reduction import (
+        _resolve_engine,
+        plar_reduce,
+        plar_reduce_ensemble,
+        resolve_granularity,
+    )
     from repro_torch.data import paper_dataset, scaled_paper_dataset
     from repro_torch.device import resolve_device
 
@@ -111,6 +120,50 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                chunk_rows=args.chunk_rows, device=device)
     granules = int(gran.num)
     granulate_s = time.perf_counter() - t0
+
+    if args.ensemble is not None:
+        dropped = [name for name, off_default in [
+            ("--engine", args.engine == "host"),
+            ("--backend", args.backend not in ENSEMBLE_BACKENDS),
+            ("--delta", args.delta != "SCE"),  # the grid IS the measure knob
+        ] if off_default]
+        if dropped:
+            ap.error(f"{', '.join(dropped)} not supported with --ensemble "
+                     f"(stacked engine backends: {', '.join(ENSEMBLE_BACKENDS)}; "
+                     f"measures go in the --ensemble list)")
+        measures_ = (["PR", "SCE", "LCE", "CCE"] if args.ensemble == "all"
+                     else [s.strip() for s in args.ensemble.split(",")])
+        configs = [{"delta": dd, "shrink": args.shrink,
+                    "max_features": args.max_features} for dd in measures_]
+        seeds = None if args.bags is None else list(range(args.bags))
+        rs = plar_reduce_ensemble(
+            source=gran, configs=configs, seeds=seeds, mode=args.mode,
+            backend=args.backend, ladder=args.bin_ladder == "on",
+            selector=args.selector, mp_chunk=args.mp_chunk,
+            grc_init=not args.no_grc, device=device)
+        grid = [{"delta": dd} if seeds is None else {"delta": dd, "seed": s}
+                for dd in measures_ for s in (seeds or [None])]
+        out = {
+            "dataset": args.dataset, "table_shape": table_shape,
+            "ensemble": [
+                {**g, "reduct": r.reduct, "core": r.core,
+                 "theta_full": r.theta_full, "iterations": r.iterations,
+                 "elapsed_s": round(r.elapsed_s, 3),
+                 "theta_history": r.theta_history}
+                for g, r in zip(grid, rs)],
+            "device": str(device), "backend": args.backend, "granules": granules,
+            "granulate_s": round(granulate_s, 3),
+        }
+        if args.json:
+            print(json.dumps(out, indent=2))
+        else:
+            print(f"{'dataset':>14}: {out['dataset']}")
+            print(f"{'table_shape':>14}: {out['table_shape']}")
+            for e in out["ensemble"]:
+                tag = e["delta"] + (f"/bag{e['seed']}" if "seed" in e else "")
+                print(f"{tag:>14}: reduct={e['reduct']} "
+                      f"theta_full={e['theta_full']:.6f}")
+        return out
     r = plar_reduce(source=gran, delta=args.delta, mode=args.mode,
                     backend=args.backend, ladder=args.bin_ladder == "on",
                     selector=args.selector, engine=args.engine,
@@ -124,7 +177,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "reduct": r.reduct, "core": r.core,
         "theta_full": r.theta_full, "iterations": r.iterations,
         "n_evaluations": r.n_evaluations, "elapsed_s": round(r.elapsed_s, 3),
-        "device": str(device), "backend": args.backend, "granules": granules,
+        "device": str(device), "backend": args.backend,
+        "engine": _resolve_engine(args.engine, args.backend), "granules": granules,
         "granulate_s": round(granulate_s, 3), "theta_history": r.theta_history,
     }
     if args.json:

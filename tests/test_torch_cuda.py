@@ -23,12 +23,19 @@ several CTAs), in a few (K = 4) or many (K = 1,024) classes, and uniform
 keys, plus arbitrary keys (not r·V + x) with sentinels and keys past
 n_bins, and G past 2^23 (where an ordered entry holds g alone).  Its
 results are the same bits on every run and (Θ_PR) as the sweep's.
+
+The device-resident engine (a CUDA graph of the greedy body, replayed)
+equals the host loop on the card bit for bit; one config captures once
+across calls, a second table of the same shape gets its own answer (the
+operands are copied into the graph's buffers, never baked in), a seed with
+``theta_full = +inf`` then a resume equals the cold run, and each ensemble
+member equals its solo run.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import plar_reduce
+from repro_torch.core import engine, plar_reduce, plar_reduce_ensemble
 from repro_torch.core.plan import candidate_theta
 from repro_torch.kernels.contingency import ops, ref
 
@@ -236,3 +243,78 @@ def test_fused_kernel_takes_arbitrary_keys(cuda_device, delta, n_bins):
         kw = dict(delta=delta, n_bins=n_bins, n_dec=23)
         _close(delta, ops.fused_theta(packed, d, w, 5000.0, **kw),
                ref.fused_theta_ref(packed, d, w, 5000.0, **kw))
+
+
+def _engine_table(seed, n=3000, a=10):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 4, (n, a)).astype(np.int32)
+    x[:, 5] = x[:, 2]
+    x[0] = 3                                  # pins v_max: same shapes for every seed
+    d = ((x[:, 0] + x[:, 3] + rng.integers(0, 2, n)) % 3).astype(np.int32)
+    return x, d
+
+
+def _same(a, b):
+    return (a.reduct, a.core, a.iterations, a.theta_full, a.theta_history) == (
+        b.reduct, b.core, b.iterations, b.theta_full, b.theta_history)
+
+
+@pytest.mark.parametrize("backend,ladder", [("segment", False), ("sweep_xla", False),
+                                            ("sweep_xla", True)])
+@pytest.mark.parametrize("shrink", [False, True])
+def test_device_engine_equals_host_loop_on_card(cuda_device, backend, ladder, shrink):
+    """With the ladder on, the host loop evaluates at K-adaptive rungs and
+    the device engine at the top rung: the same bits (§5.3)."""
+    x, d = _engine_table(0)
+    for delta in DELTAS:
+        kw = dict(delta=delta, backend=backend, ladder=ladder, shrink=shrink,
+                  device=cuda_device)
+        rd = plar_reduce(x, d, engine="device", **kw)
+        rh = plar_reduce(x, d, engine="host", **kw)
+        assert _same(rd, rh), (delta, rd, rh)
+
+
+def test_device_engine_one_capture_and_fresh_operands(cuda_device):
+    """Two tables of one shape through one runner: one capture, and each
+    table gets its own answer (the one the host loop gives it)."""
+    x1, d1 = _engine_table(1)
+    x2, d2 = _engine_table(2)
+    kw = dict(delta="SCE", grc_init=False, device=cuda_device)
+    r1 = plar_reduce(x1, d1, engine="device", **kw)
+    runner = engine.make_engine_run("SCE", "incremental", "segment", 10, 3000, 3, 4, 1e-6,
+                                    1e-5, False, 10, 64)
+    assert runner.loop.captures == 1
+    r2 = plar_reduce(x2, d2, engine="device", **kw)
+    assert runner.loop.captures == 1
+    assert _same(r1, plar_reduce(x1, d1, engine="host", **kw))
+    assert _same(r2, plar_reduce(x2, d2, engine="host", **kw))
+
+
+def test_device_engine_seed_then_resume_equals_cold(cuda_device):
+    x, d = _engine_table(3)
+    cold = plar_reduce(x, d, delta="PR", engine="device", compute_core=False,
+                       grc_init=False, device=cuda_device)
+    runner = engine.make_engine_run("PR", "incremental", "segment", 10, 3000, 3, 4, 1e-6,
+                                    1e-5, False, 10, 64)
+    xs, ds = torch.as_tensor(x, device=cuda_device), torch.as_tensor(d, device=cuda_device)
+    ws = torch.ones(3000, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(3000, dtype=torch.bool, device=cuda_device)
+    k = max(len(cold.reduct) - 1, 1)
+    st = engine.init_state_from_reduct(runner, 3000, 10, valid, xs, ds, ws, 3000,
+                                       cold.reduct[:k])
+    assert int(st.n_selected) == k
+    fin = engine.engine_resume(runner, st, xs, ds, ws, 3000, cold.theta_full)
+    reduct, hist, _, _ = engine.unpack_result(fin, 0)
+    assert (reduct, hist) == (cold.reduct, cold.theta_history)
+    assert runner.loop.captures == 1
+
+
+@pytest.mark.parametrize("backend", ["segment", "sweep_xla"])
+def test_ensemble_members_equal_solo_on_card(cuda_device, backend):
+    x, d = _engine_table(4)
+    grid = [{"delta": dd} for dd in DELTAS] + [{"delta": "SCE", "shrink": True},
+                                               {"delta": "PR", "max_features": 2}]
+    ens = plar_reduce_ensemble(x, d, configs=grid, backend=backend, device=cuda_device)
+    for c, r in zip(grid, ens):
+        assert _same(r, plar_reduce(x, d, engine="device", backend=backend,
+                                    device=cuda_device, **c)), c

@@ -1,0 +1,204 @@
+"""The port's stacked ensemble engine (``repro_torch.core.plar_reduce_ensemble``)
+on the CPU: each member equals its solo ``plar_reduce(engine="device")``
+byte for byte (reduct, core, Θ history, iterations, evaluations), and equals
+the JAX package's ensemble member (reducts, cores, iterations and
+evaluations equal, Θ_PR bit-equal, SCE/LCE/CCE within rtol=1e-6,
+atol=1e-7).  Bags are numpy's ``default_rng`` draws, array for array the
+JAX package's.
+
+Mirrors ``tests/test_ensemble.py`` except its two service tests (the service
+tier is not ported).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bagged_weights as j_bagged
+from repro.core.reduction import partition_reduce_params as j_partition
+from repro.core import plar_reduce_ensemble as j_ensemble
+from repro.core import resolve_granularity as j_resolve
+from repro_torch import obs
+from repro_torch.core import (
+    ENSEMBLE_BACKENDS,
+    bagged_weights,
+    expand_ensemble_grid,
+    make_ensemble_run,
+    normalize_ensemble_configs,
+    partition_reduce_params,
+    plar_reduce,
+    plar_reduce_ensemble,
+    resolve_granularity,
+)
+
+# The tensors here are tiny: PyTorch's intra-op thread pool only adds
+# overhead, and across pytest-xdist workers it oversubscribes the cores.
+torch.set_num_threads(1)
+
+DELTAS = ["PR", "SCE", "LCE", "CCE"]
+CPU = "cpu"
+
+
+def _table(rng, n, a, vmax=4, m=2, redundancy=0.5):
+    x = rng.integers(0, vmax, size=(n, a)).astype(np.int32)
+    for j in range(1, a):
+        if rng.random() < redundancy:
+            x[:, j] = x[:, rng.integers(0, j)]
+    d = rng.integers(0, m, size=(n,)).astype(np.int32)
+    return x, d
+
+
+def _assert_member(r_e, r_s):
+    assert r_e.reduct == r_s.reduct
+    assert r_e.theta_history == r_s.theta_history  # bit-identical floats
+    assert r_e.core == r_s.core
+    assert r_e.theta_full == r_s.theta_full
+    assert r_e.iterations == r_s.iterations
+    assert r_e.n_evaluations == r_s.n_evaluations
+
+
+def _assert_jax(delta, rt, rj):
+    assert (rt.reduct, rt.core, rt.iterations, rt.n_evaluations) == (
+        rj.reduct, rj.core, rj.iterations, rj.n_evaluations)
+    if delta == "PR":
+        assert rt.theta_history == rj.theta_history
+        assert rt.theta_full == rj.theta_full
+    else:
+        np.testing.assert_allclose(rt.theta_history, rj.theta_history, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(rt.theta_full, rj.theta_full, rtol=1e-6, atol=1e-7)
+
+
+MIXED_GRID = [
+    {"delta": "PR"},
+    {"delta": "SCE", "shrink": True},
+    {"delta": "LCE", "max_features": 3, "compute_core": False},
+    {"delta": "CCE", "tol": 1e-5},
+    {"delta": "PR", "shrink": True, "tie_tol": 1e-4},
+    {"delta": "SCE", "warm_start": [1, 2]},
+]
+
+
+def test_ensemble_mixed_grid_matches_sequential_and_jax():
+    """One stacked loop over a grid mixing every per-config knob == the same
+    configs run solo, member for member, and == JAX's ensemble members."""
+    x, d = _table(np.random.default_rng(7), 300, 8, m=3)
+    ens = plar_reduce_ensemble(x, d, configs=MIXED_GRID, device=CPU)
+    assert len(ens) == len(MIXED_GRID)
+    for c, r_e, r_j in zip(MIXED_GRID, ens, j_ensemble(x, d, configs=MIXED_GRID)):
+        _assert_member(r_e, plar_reduce(x, d, engine="device", device=CPU, **c))
+        _assert_jax(c["delta"], r_e, r_j)
+
+
+@pytest.mark.parametrize("mode,backend,ladder", [
+    ("incremental", "segment", False),
+    ("incremental", "onehot", False),
+    ("incremental", "sweep_xla", False),
+    ("incremental", "sweep_xla", True),
+    ("spark", "segment", False),
+])
+def test_ensemble_backend_parity(mode, backend, ladder):
+    x, d = _table(np.random.default_rng(13), 250, 7, m=3)
+    ens = plar_reduce_ensemble(x, d, configs=DELTAS, mode=mode, backend=backend,
+                               ladder=ladder, device=CPU)
+    for dd, r_e in zip(DELTAS, ens):
+        _assert_member(r_e, plar_reduce(x, d, delta=dd, engine="device", mode=mode,
+                                        backend=backend, ladder=ladder, device=CPU))
+
+
+def test_ensemble_bagged_matches_reweighted_sequential_and_jax():
+    """A ``seed`` config is a bootstrap reweighting of the shared
+    granularity: its solo twin is ``plar_reduce`` with ``w`` replaced."""
+    x, d = _table(np.random.default_rng(29), 280, 7, m=3)
+    gran = resolve_granularity(x, d, device=CPU)
+    seeds = [0, 1, 2]
+    ens = plar_reduce_ensemble(source=gran, configs=["SCE"], seeds=seeds, device=CPU)
+    jens = j_ensemble(source=j_resolve(x, d), configs=["SCE"], seeds=seeds)
+    for s, r_e, r_j in zip(seeds, ens, jens):
+        w_s = torch.from_numpy(bagged_weights(gran, s))
+        assert int(w_s.sum()) == int(gran.n_total)  # total mass preserved
+        twin = dataclasses.replace(gran, w=w_s, n_total=w_s.sum().to(torch.int32))
+        _assert_member(r_e, plar_reduce(source=twin, delta="SCE", engine="device",
+                                        device=CPU))
+        _assert_jax("SCE", r_e, r_j)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 5, 123])
+def test_bagged_weights_equal_jax(seed):
+    x, d = _table(np.random.default_rng(31), 400, 6, m=3)
+    w = bagged_weights(resolve_granularity(x, d, device=CPU), seed)
+    assert w.dtype == np.int32
+    assert np.array_equal(w, np.asarray(j_bagged(j_resolve(x, d), seed)))
+
+
+def test_ensemble_one_factory_per_grid():
+    """The whole grid is one runner (one CUDA graph on a card), and a second
+    grid on different same-shape data makes no new one."""
+    n, a, vmax, m = 160, 8, 3, 2
+    # a grid no other test uses (tol 2e-6), so the first call is a genuine miss
+    grid = [{"delta": dd, "shrink": s, "tol": 2e-6} for dd in DELTAS for s in (False, True)]
+    rng = np.random.default_rng(23)
+    tables = [_table(rng, n, a, vmax=vmax, m=m) for _ in range(2)]
+    for x, d in tables:   # pin v_max/n_dec: both tables resolve to one static config
+        x[0, :] = vmax - 1
+        d[0] = m - 1
+
+    def factories():
+        return obs.get_registry().snapshot().get("plar_engine_ensemble_factories_total", 0)
+
+    before = factories()
+    results = [plar_reduce_ensemble(x, d, configs=grid, grc_init=False, device=CPU)
+               for x, d in tables]
+    assert factories() == before + 1
+    runner = make_ensemble_run("incremental", "segment", [c["delta"] for c in grid], a, n, m,
+                               vmax, 64, False)
+    assert factories() == before + 1                 # the same cached runner
+    assert runner.cfg.n_cfgs == len(grid)
+    for (x, d), rs in zip(tables, results):
+        for c, r_e in zip(grid, rs):
+            _assert_member(r_e, plar_reduce(x, d, engine="device", grc_init=False,
+                                            device=CPU, **c))
+
+
+def test_expand_ensemble_grid_order_and_seeds():
+    grid = expand_ensemble_grid(["PR", {"delta": "SCE", "shrink": True}], seeds=[4, 9])
+    # configs outer, seeds inner; bare measure name → {"delta": name}
+    assert grid == [
+        {"delta": "PR", "seed": 4}, {"delta": "PR", "seed": 9},
+        {"delta": "SCE", "shrink": True, "seed": 4},
+        {"delta": "SCE", "shrink": True, "seed": 9},
+    ]
+    assert expand_ensemble_grid(["LCE"]) == [{"delta": "LCE"}]
+
+
+def test_partition_reduce_params_matches_jax():
+    queries = [
+        ("PR", {}), ("SCE", {"shrink": True, "backend": "sweep_xla", "ladder": True}),
+        ("LCE", {"backend": "sweep"}), ("CCE", {"ladder": True}), ("XXX", {}),
+        ("PR", {"engine": "host"}), ("SCE", {"mode": "spark", "mp_chunk": 8, "seed": 3}),
+        ("PR", {"mode": "bogus"}),
+    ]
+    for delta, params in queries:
+        assert partition_reduce_params(delta, params) == j_partition(delta, params)
+
+
+def test_ensemble_validation_errors():
+    x, d = _table(np.random.default_rng(5), 60, 4)
+    with pytest.raises(ValueError, match="non-empty"):
+        plar_reduce_ensemble(x, d, configs=[], device=CPU)
+    with pytest.raises(ValueError, match="unknown measure"):
+        plar_reduce_ensemble(x, d, configs=["XXX"], device=CPU)
+    with pytest.raises(ValueError, match="unknown ensemble config keys"):
+        plar_reduce_ensemble(x, d, configs=[{"delta": "PR", "bogus": 1}], device=CPU)
+    with pytest.raises(ValueError, match="seed"):
+        # per-config seed and a seeds= grid are mutually exclusive
+        normalize_ensemble_configs([{"delta": "PR", "seed": 3}], seeds=[1])
+    with pytest.raises(ValueError, match="backend"):
+        plar_reduce_ensemble(x, d, configs=["PR"], backend="fused_xla", device=CPU)
+    with pytest.raises(ValueError, match="sweep_xla"):
+        # the stacked ladder shares one rung across configs — sweep_xla only
+        plar_reduce_ensemble(x, d, configs=["PR"], backend="segment", ladder=True,
+                             device=CPU)
+    with pytest.raises(ValueError, match="out of range"):
+        plar_reduce_ensemble(x, d, configs=[{"delta": "PR", "warm_start": [9]}], device=CPU)
+    assert "fused_xla" not in ENSEMBLE_BACKENDS

@@ -1,13 +1,16 @@
-"""End-to-end parity: repro_torch's plar_reduce (host loop, CPU) vs repro's.
+"""End-to-end parity: repro_torch's plar_reduce (CPU) vs repro's.
 
 The same seeded tables go through both packages.  Reducts, cores and
 iteration counts must be equal and the Θ_PR history bit-equal (integer
 counts, one division); SCE/LCE/CCE histories agree within rtol=1e-6,
 atol=1e-7 (XLA and PyTorch sum a contingency's rows in different orders).
-The JAX side runs its host loop, as the port does (the JAX package's own
-tests hold it byte-identical to its device engine), with the Pallas kernels
-in interpret mode for ``sweep``/``fused``/``pallas``; the CLI test holds the
-port against JAX's default device engine.
+The JAX side runs its host loop, with the Pallas kernels in interpret mode
+for ``sweep``/``fused``/``pallas``; the port runs its default engine
+(``auto``: the device engine for ``segment``/``onehot``/``fused_xla``/
+``sweep_xla``, the host loop for the kernel backends), which its own tests
+hold byte-identical to its host loop (``test_torch_engine.py``).  The CLI
+tests hold the port's CLI against JAX's default device engine and, for
+``--ensemble all --bags 2``, against JAX's CLI.
 
 Also here: shrink, spark mode / HAR / FSPA, ``max_features``,
 ``warm_start``, the ladder, a granularity carried across from JAX, the CLI
@@ -158,8 +161,8 @@ def test_granularity_carried_from_jax():
 
 def test_driver_validation():
     x, d = _random_table(3, 60, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_plar(x, d, engine="device", device=CPU)
+    with pytest.raises(ValueError, match="engine='device' does not support backend='sweep'"):
+        t_plar(x, d, engine="device", backend="sweep", device=CPU)
     with pytest.raises(ValueError, match="unknown engine"):
         t_plar(x, d, engine="warp", device=CPU)
     with pytest.raises(ValueError, match="unknown Θ backend"):
@@ -202,10 +205,38 @@ def test_cli_device_cpu(capsys):
     assert out["reduct"] == rj.reduct and out["core"] == rj.core
     assert out["theta_history"] == rj.theta_history
     assert out["table_shape"] == [400, 10] and out["granules"] > 0
-    for flag in (["--distributed"], ["--ensemble", "all"]):
-        with pytest.raises(SystemExit):
-            cli.main(["--dataset", "mushroom", "--device", "cpu", *flag])
+    assert out["engine"] == "host"          # auto keeps the sweep kernel on the host loop
+    with pytest.raises(SystemExit):
+        cli.main(["--dataset", "mushroom", "--device", "cpu", "--distributed"])
     assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_ensemble_matches_jax_cli(capsys, monkeypatch):
+    """``--ensemble all --bags 2``: the same grid, in the same order, with
+    the same members as JAX's CLI prints."""
+    from repro.launch import reduce as j_cli
+    from repro_torch.launch import reduce as cli
+
+    flags = ["--dataset", "mushroom", "--max-rows", "400", "--max-attrs", "10",
+             "--ensemble", "all", "--bags", "2", "--json"]
+    out = cli.main(flags + ["--device", "cpu"])
+    capsys.readouterr()
+    monkeypatch.setattr(sys, "argv", ["repro.launch.reduce"] + flags)
+    j_cli.main()
+    jout = json.loads(capsys.readouterr().out)
+    assert out["table_shape"] == jout["table_shape"] == [400, 10]
+    assert len(out["ensemble"]) == len(jout["ensemble"]) == 8
+    for e, je in zip(out["ensemble"], jout["ensemble"]):
+        assert (e["delta"], e["seed"]) == (je["delta"], je["seed"])
+        assert (e["reduct"], e["core"], e["iterations"]) == (
+            je["reduct"], je["core"], je["iterations"])
+        if e["delta"] == "PR":
+            assert e["theta_full"] == je["theta_full"]
+        else:
+            np.testing.assert_allclose(e["theta_full"], je["theta_full"], rtol=1e-6, atol=1e-7)
+    with pytest.raises(SystemExit):
+        cli.main(flags + ["--device", "cpu", "--backend", "sweep"])
+    assert "not supported with --ensemble" in capsys.readouterr().err
 
 
 def test_port_imports_no_jax_or_repro():
@@ -214,13 +245,16 @@ def test_port_imports_no_jax_or_repro():
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.contingency\n"
+        "import repro_torch.core.engine, repro_torch.launch.time_engine\n"
         "import repro_torch.launch.reduce, repro_torch.data, repro_torch.obs\n"
-        "from repro_torch.core import plar_reduce\n"
+        "from repro_torch.core import plar_reduce, plar_reduce_ensemble\n"
         "rng = np.random.default_rng(0)\n"
         "x = rng.integers(0, 3, (80, 5)).astype(np.int32)\n"
         "d = rng.integers(0, 2, 80).astype(np.int32)\n"
         "for b in ('segment', 'sweep', 'fused', 'pallas'):\n"
         "    plar_reduce(x, d, delta='SCE', backend=b, device='cpu')\n"
+        "plar_reduce(x, d, delta='PR', engine='device', mode='spark', device='cpu')\n"
+        "plar_reduce_ensemble(x, d, configs=['PR', 'SCE'], seeds=[0], device='cpu')\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.launch.profile_serve, repro_torch.launch.profile_sweep\n"
