@@ -95,11 +95,40 @@ once, on the card):
    prints the grid's loop seconds against the sum of the solo loops.
    The engine's graphs are released after this phase.
 
+The online-service slice adds, on the kdd99 table of phase 4 (5,000,000 x
+41, 99,741 granules), through ``repro_torch.service.ReductServer`` on the
+card:
+
+11. service: (a) streaming — the first 2,500,000 rows submitted, then 4
+    updates of 625,000 rows; after the submit and after each update, solo
+    PR queries on ``segment`` (device engine), ``sweep``, ``fused`` and
+    ``pallas`` (host loop: the three Θ kernels) with equal reducts and
+    bit-equal Θ_PR, then one window of 4 clients (PR, SCE, LCE, CCE)
+    served by one stacked dispatch; at the end every measure's answer, and
+    every backend's, equals a batch ``plar_reduce`` over the full table,
+    reduct and Θ history; (b) merge during capture — the engine's graphs
+    released, dataset B's 4,000,000-row update merge and dataset A's
+    dispatch in one window: the merge span overlaps the dispatch span, the
+    device guard keeps the merge out of the capture, and both answers equal
+    their solo runs; (c) checkpoint and restart — ``stop()`` writes the
+    checkpoint, a new server restores both datasets and its first query is
+    a warm repair with the same answer; (d) shard recovery —
+    ``DatasetHandle.create_sharded`` with 4 shards at ``chunk_rows``
+    1,048,576, shard 2 dropped and recovered: the merged granularity
+    bitwise equal to the unfailed build, the reduct equal.  Prints the
+    per-update latency against the full recompute, merge seconds, captures
+    per window (``engine.dispatch`` / ``engine.dispatch_ensemble`` spans),
+    the guard's waits, peak device memory (below the card's memory) and the
+    Θ kernels' launches in this phase (counts set to 0 just before it, each
+    > 0 after).  Any retry, stale serve, quarantine, flush or checkpoint
+    failure fails the phase.  The engine's graphs are released after it.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
 RWKV6's prefill at B = 1, T = 2,048 (its top-level numbers) and decode at
-B = 4, T = 1 (``paths``), launches from phase 7.
+B = 4, T = 1 (``paths``), launches from phase 7.  The three Θ kernels'
+entries also carry ``service_launches``, their launches in phase 11.
 """
 from __future__ import annotations
 
@@ -160,6 +189,11 @@ ENGINE_RUNS = [("segment", "PR"), ("segment", "SCE"), ("sweep_xla", "PR")]  # (b
 ENSEMBLE_GRID = [{"delta": "PR"}, {"delta": "PR", "seed": 0}, {"delta": "PR", "seed": 1},
                  {"delta": "SCE"}, {"delta": "LCE"}, {"delta": "CCE"}]
 ENSEMBLE_MP_CHUNK = 21   # two chunks of the 41 candidates: half the contingency a config
+SERVICE = dict(first=2_500_000, update_rows=625_000, updates=4,
+               backends=("segment", "sweep", "fused", "pallas"),
+               b_first=1_000_000, a_touch=1_000, shards=4, shard_chunk_rows=1_048_576,
+               drop=2)
+CARD_BYTES = 80e9        # the H100's device memory
 
 
 def emit(obj) -> None:
@@ -552,6 +586,237 @@ def phase_ensemble(torch, obs, plar_reduce, plar_reduce_ensemble, gran, card: st
     return out
 
 
+def _captures(obs, before: int) -> int:
+    """Graphs the engine captured since the tracer counted ``before``."""
+    return sum(rec.args.get("captures", 0)
+               for name in ("engine.dispatch", "engine.dispatch_ensemble")
+               for rec in _new_spans(obs, before, name))
+
+
+def _same_answer(a, b) -> bool:
+    return (a.reduct, a.theta_history) == (b.reduct, b.theta_history)
+
+
+def phase_service(torch, obs, ops, x, d, stream, card: str) -> dict:
+    """The online reduct service at kdd99 on the card: streaming with the
+    four backends and a stacked window, a merge during a capture, a
+    checkpoint and restart, and shard recovery."""
+    import asyncio
+    import tempfile
+
+    from repro_torch.core import engine, plar_reduce
+    from repro_torch.core.guard import device_guard
+    from repro_torch.service import DatasetHandle, ReductServer
+
+    cfg = SERVICE
+    n_dec, v_max = stream.n_dec, stream.v_max
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    guard = device_guard("cuda")
+    tracer = obs.get_tracer()
+    out = {"table_shape": list(x.shape), "checkpoint_dir": ckdir}
+    engine.release_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # the service path's counts only
+
+    def summary_ok(srv, where):
+        summ = srv.summary()
+        bad = {k: summ[k] for k in ("retries", "stale_served", "quarantined", "flush_failures")
+               if summ[k]}
+        if srv.checkpointer is not None and srv.checkpointer.failed_saves:
+            bad["failed_saves"] = srv.checkpointer.failed_saves
+        if bad:
+            raise AssertionError(f"service {where}: {bad}")
+        return summ
+
+    async def first_life():
+        rounds = []
+        async with ReductServer(device="cuda", checkpoint_dir=ckdir) as srv:
+            t0 = time.perf_counter()
+            await srv.submit("kdd", x[:cfg["first"]], d[:cfg["first"]], n_dec=n_dec, v_max=v_max)
+            out["submit_s"] = time.perf_counter() - t0
+            for i in range(cfg["updates"] + 1):
+                rnd = {"round": i}
+                if i:
+                    lo = cfg["first"] + (i - 1) * cfg["update_rows"]
+                    await srv.update("kdd", x[lo:lo + cfg["update_rows"]],
+                                     d[lo:lo + cfg["update_rows"]])
+                    rnd["rows_added"] = cfg["update_rows"]
+                solo = {}
+                for b in cfg["backends"]:
+                    before = tracer.recorded
+                    t0 = time.perf_counter()
+                    r = await srv.query("kdd", "PR", backend=b)
+                    req = srv.requests[-1]
+                    solo[b] = dict(result=r, latency_s=time.perf_counter() - t0, warm=req.warm,
+                                   prefix_kept=req.prefix_kept, captures=_captures(obs, before),
+                                   merge_s=[m.dur for m in _new_spans(obs, before,
+                                                                      "scheduler.merge")])
+                ref = solo["segment"]["result"]
+                for b, s_ in solo.items():
+                    if not _same_answer(s_["result"], ref):
+                        raise AssertionError(f"round {i}: {b} PR {s_['result'].reduct} "
+                                             f"{s_['result'].theta_history} != segment's "
+                                             f"{ref.reduct} {ref.theta_history}")
+                before, runs = tracer.recorded, srv.stats["engine_runs"]
+                t0 = time.perf_counter()
+                window = await asyncio.gather(*[srv.query("kdd", m) for m in DELTAS])
+                w_lat = time.perf_counter() - t0
+                sizes = [q.batch_size for q in list(srv.requests)[-len(DELTAS):]]
+                if srv.stats["engine_runs"] - runs != 1 or sizes != [len(DELTAS)] * len(DELTAS):
+                    raise AssertionError(f"round {i}: the 4-client window took "
+                                         f"{srv.stats['engine_runs'] - runs} dispatches, "
+                                         f"batch sizes {sizes}")
+                granules = await asyncio.to_thread(lambda: srv.handle("kdd").n_granules)
+                rnd.update(
+                    granules=granules,
+                    update_latency_s=solo["segment"]["latency_s"],
+                    merge_s=sum(solo["segment"]["merge_s"]),
+                    reduct=ref.reduct,
+                    solo={b: {k: v for k, v in s_.items() if k != "result"}
+                          for b, s_ in solo.items()},
+                    window=dict(latency_s=w_lat, captures=_captures(obs, before),
+                                warm=[q.warm for q in list(srv.requests)[-len(DELTAS):]],
+                                reducts={m: r.reduct for m, r in zip(DELTAS, window)}),
+                    captures=sum(s_["captures"] for s_ in solo.values())
+                    + _captures(obs, before))
+                emit({"phase": "service_round", "card": card, **rnd})
+                rnd["answers"] = {"solo": {b: s_["result"] for b, s_ in solo.items()},
+                                  "window": dict(zip(DELTAS, window))}
+                rounds.append(rnd)
+
+            # (b) dataset B's big merge in one window with A's dispatch, the
+            # engine's graphs released so A's dispatch captures
+            await srv.submit("kdd_b", x[:cfg["b_first"]], d[:cfg["b_first"]],
+                             n_dec=n_dec, v_max=v_max)
+            engine.release_graphs()
+            await srv.update("kdd", x[:cfg["a_touch"]], d[:cfg["a_touch"]])
+            await srv.update("kdd_b", x[cfg["b_first"]:], d[cfg["b_first"]:])
+            waits = (guard.capture_waits, guard.capture_wait_s, guard.shared_waits)
+            before = tracer.recorded
+            ra, rb = await asyncio.gather(srv.query("kdd", "PR", backend="segment"),
+                                          srv.query("kdd_b", "PR", backend="segment"))
+            merges = [m for m in _new_spans(obs, before, "scheduler.merge")
+                      if m.args["dataset"] == "kdd_b"]
+            disp = [m for m in _new_spans(obs, before, "scheduler.dispatch")
+                    if m.args["dataset"] == "kdd"]
+            caps = [m for m in _new_spans(obs, before, "engine.dispatch")]
+            overlap = (len(merges) == 1 and len(disp) == 1
+                       and merges[0].t_start < disp[0].t_start + disp[0].dur
+                       and disp[0].t_start < merges[0].t_start + merges[0].dur)
+            solo_a = plar_reduce(source=srv.handle("kdd").gran, delta="PR", backend="segment",
+                                 device="cuda")
+            solo_b = plar_reduce(source=srv.handle("kdd_b").gran, delta="PR",
+                                 backend="segment", device="cuda")
+            merge_b = dict(
+                merge_s=merges[0].dur if merges else None,
+                merge_rows=int(x.shape[0]) - cfg["b_first"],
+                dispatch_s=disp[0].dur if disp else None,
+                spans_overlap=overlap,
+                captures=sum(c.args.get("captures", 0) for c in caps),
+                capture_waits=guard.capture_waits - waits[0],
+                capture_wait_s=guard.capture_wait_s - waits[1],
+                merge_waits=guard.shared_waits - waits[2],
+                a_equal_solo=_same_answer(ra, solo_a), b_equal_solo=_same_answer(rb, solo_b))
+            emit({"phase": "service_merge_during_capture", "card": card, **merge_b})
+            if not (overlap and merge_b["captures"] >= 1 and merge_b["a_equal_solo"]
+                    and merge_b["b_equal_solo"]):
+                raise AssertionError(f"merge during capture: {merge_b}")
+            out["merge_during_capture"] = merge_b
+            last_a = ra
+        out["first_life"] = summary_ok(srv, "first life")
+        return rounds, last_a
+
+    rounds, last_a = asyncio.run(first_life())
+
+    # (a) the final answers against batch plar_reduce over the full table
+    final = rounds[-1]["answers"]
+    recompute = {}
+    for m in DELTAS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = plar_reduce(x, d, delta=m, n_dec=n_dec, v_max=v_max, device="cuda")
+        torch.cuda.synchronize()
+        recompute[m] = time.perf_counter() - t0
+        served = [final["window"][m]] + (list(final["solo"].values()) if m == "PR" else [])
+        for r in served:
+            if not _same_answer(r, batch):
+                raise AssertionError(f"served {m} {r.reduct} {r.theta_history} != batch "
+                                     f"plar_reduce {batch.reduct} {batch.theta_history}")
+    lat = [r["update_latency_s"] for r in rounds[1:]]
+    out.update(
+        rounds=[{k: v for k, v in r.items() if k != "answers"} for r in rounds],
+        final_equal_batch=True, full_recompute_s=recompute,
+        update_latency_s=lat, mean_update_latency_s=sum(lat) / len(lat),
+        merge_s_per_update=[r["merge_s"] for r in rounds[1:]],
+        captures_per_window=[r["captures"] for r in rounds])
+    emit({"phase": "service_streaming", "card": card,
+          **{k: out[k] for k in ("submit_s", "full_recompute_s", "update_latency_s",
+                                 "mean_update_latency_s", "merge_s_per_update",
+                                 "captures_per_window", "final_equal_batch")}})
+
+    # (c) restart from the checkpoint: the first query is a warm repair
+    async def second_life():
+        async with ReductServer(device="cuda", checkpoint_dir=ckdir) as srv:
+            restored = srv.stats["restored_datasets"]
+            t0 = time.perf_counter()
+            r = await srv.query("kdd", "PR", backend="segment")
+            lat = time.perf_counter() - t0
+            warm = srv.requests[-1].warm and srv.handle("kdd").last_was_warm
+        summary_ok(srv, "second life")
+        return dict(restored_datasets=restored, first_query_warm=warm, first_query_s=lat,
+                    equal_to_last_answer=_same_answer(r, last_a))
+
+    restart = asyncio.run(second_life())
+    emit({"phase": "service_restart", "card": card, **restart})
+    if not (restart["restored_datasets"] == 2 and restart["first_query_warm"]
+            and restart["equal_to_last_answer"]):
+        raise AssertionError(f"restart: {restart}")
+    out["restart"] = restart
+
+    # (d) shard recovery: drop shard 2, re-fold it from its lineage
+    t0 = time.perf_counter()
+    h = DatasetHandle.create_sharded(stream, cfg["shards"], chunk_rows=cfg["shard_chunk_rows"],
+                                     device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    unfailed = {k: getattr(h.gran, k).clone() for k in ("x", "d", "w", "valid", "num", "n_total")}
+    fp, r0 = h.fingerprint, h.reduce("PR")
+    h.drop_shard(cfg["drop"])
+    before = tracer.recorded
+    t0 = time.perf_counter()
+    recovered = h.recover_shards(stream)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    refold = _new_spans(obs, before, "recovery.refold_shard")
+    bitwise = all(torch.equal(getattr(h.gran, k), v) for k, v in unfailed.items())
+    r1 = h.reduce("PR", warm=False)
+    shards = dict(shards=cfg["shards"], chunk_rows=cfg["shard_chunk_rows"], dropped=cfg["drop"],
+                  recovered=recovered, granules=int(unfailed["num"]), build_s=build_s,
+                  recover_s=recover_s, refold_s=refold[0].dur if refold else None,
+                  bitwise_equal=bitwise, fingerprint_equal=h.fingerprint == fp,
+                  reduct=r1.reduct, reduct_equal=r1.reduct == r0.reduct)
+    emit({"phase": "service_shard_recovery", "card": card, **shards})
+    if not (recovered == [cfg["drop"]] and bitwise and shards["fingerprint_equal"]
+            and shards["reduct_equal"]):
+        raise AssertionError(f"shard recovery: {shards}")
+    out["shard_recovery"] = shards
+    del h, unfailed
+
+    torch.cuda.synchronize()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["launches"] = ops.launch_counts()
+    emit({"phase": "service_check", "card": card, "launches": out["launches"],
+          "max_memory_allocated": out["max_memory_allocated"], "card_bytes": CARD_BYTES})
+    for name, count in out["launches"].items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the service path")
+    if not out["max_memory_allocated"] < CARD_BYTES:
+        raise AssertionError(f"peak device memory {out['max_memory_allocated']} bytes")
+    engine.release_graphs()
+    return out
+
+
 def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
     """The flash and RWKV6 kernels vs their plain versions at the serving
     path's full-width shapes; times and bounds."""
@@ -839,18 +1104,20 @@ def main() -> None:
     report["main_path"] = phase_main_path(torch, ops, reduce_cli, smi)
     report["small_reference"] = phase_small_reference(torch, plar_reduce, scaled_paper_dataset)
 
-    x, d = scaled_paper_dataset("kdd99", max_rows=5_000_000, max_attrs=64).table()
+    kdd99 = scaled_paper_dataset("kdd99", max_rows=5_000_000, max_attrs=64)
+    x, d = kdd99.table()
     gran = resolve_granularity(x, d, device="cuda")
-    del x, d
     sweep_pr = next(o for o in report["main_path"]["runs"]
                     if (o["backend"], o["delta"]) == ("sweep", "PR"))
     engine.release_graphs()        # phase 4's segment run captured its graph: start afresh
     obs.enable()
     report["device_engine"] = phase_device_engine(torch, obs, plar_reduce, gran, sweep_pr, smi)
     report["ensemble"] = phase_ensemble(torch, obs, plar_reduce, plar_reduce_ensemble, gran, smi)
-    obs.disable()
     del gran
     engine.release_graphs()
+    report["service"] = phase_service(torch, obs, ops, x, d, kdd99, smi)
+    obs.disable()
+    del x, d
     report["lm_kernels_vs_plain"] = phase_lm_kernels(torch, fa, rk, smi)
     report["serving"] = phase_serving(torch, lm, smi)
     report["cross_check"] = phase_cross_check(torch, smi)
@@ -872,6 +1139,7 @@ def main() -> None:
             "library_ms": pick["library_ms"],
             "at": {"n_bins": top, "delta": pick["delta"], **SHAPE},
         }
+        entry["service_launches"] = report["service"]["launches"][name]
         if name != "contingency":   # the Θ kernels: the shared segment kernels, and skewed r
             entry["headers"] = [SOURCES["segments"]]
             entry["ms_at_K"] = {str(r["K"]): r["ms"] for r in rows

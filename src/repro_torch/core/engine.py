@@ -55,6 +55,7 @@ import torch
 from repro_torch import obs
 
 from . import measures
+from .guard import device_guard
 from .granularity import (
     column_terms,
     dyn_column_terms,
@@ -515,7 +516,12 @@ def _drive(body, done: torch.Tensor, max_bodies: int, period: int) -> Tuple[int,
 class _Loop:
     """The engine's while loop for one runner: static buffers (state and
     operands) per device, the body captured as a CUDA graph at the first
-    call on a card, then replayed; on the CPU the same body runs eagerly."""
+    call on a card, then replayed; on the CPU the same body runs eagerly.
+
+    Every caller of a config shares its buffers, so calls of one runner must
+    not overlap: callers on several threads serialize their dispatches (the
+    service's handles hold ``device_guard(device).dispatch``).
+    """
 
     def __init__(self, body):
         self._body = body          # (operands, state) -> (state, done)
@@ -532,18 +538,23 @@ class _Loop:
 
     def _capture(self, slot, st_in: SelectionState) -> None:
         t0 = time.perf_counter()
-        # one eager body on a side stream first (lazy library state is
-        # created outside the capture), then the state is put back
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._step(slot)
-        torch.cuda.current_stream().wait_stream(side)
-        slot["st"].copy_(st_in)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=_graph_pool(slot["st"].r_ids.device)):
-            self._step(slot)
-        torch.cuda.synchronize()
+        dev = slot["st"].r_ids.device
+        # no other thread may sync or allocate on the card while the capture
+        # runs (global capture mode): the device guard keeps the service's
+        # merges, builds and snapshots out until it ends (core/guard.py)
+        with device_guard(dev).exclusive():
+            # one eager body on a side stream first (lazy library state is
+            # created outside the capture), then the state is put back
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._step(slot)
+            torch.cuda.current_stream().wait_stream(side)
+            slot["st"].copy_(st_in)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=_graph_pool(dev)):
+                self._step(slot)
+            torch.cuda.synchronize()
         slot["graph"] = graph
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

@@ -112,6 +112,9 @@ class ReductionResult:
     n_evaluations: int              # candidate evaluations performed
     elapsed_s: float
     per_iteration_s: List[float]
+    # set by the serving layer's graceful degradation (§3.10): True marks a
+    # last-known-good result served because the fresh dispatch failed
+    stale: bool = False
 
     @property
     def n_selected(self) -> int:

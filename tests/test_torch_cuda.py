@@ -30,6 +30,13 @@ across calls, a second table of the same shape gets its own answer (the
 operands are copied into the graph's buffers, never baked in), a seed with
 ``theta_full = +inf`` then a resume equals the cold run, and each ensemble
 member equals its solo run.
+
+The online service on the card: an engine capture with a merge running on
+another thread (the device guard keeps the merge out of the capture; both
+answers equal their solo runs), a timed-out dispatch whose retry adopts the
+running call (the untimed answer, one engine run), a handle's checkpoint
+round trip, and the server streaming the shuttle table (58,000 rows) with
+the four Θ backends bit-equal on Θ_PR and a stacked window of four clients.
 """
 import numpy as np
 import pytest
@@ -318,3 +325,165 @@ def test_ensemble_members_equal_solo_on_card(cuda_device, backend):
     for c, r in zip(grid, ens):
         assert _same(r, plar_reduce(x, d, engine="device", backend=backend,
                                     device=cuda_device, **c)), c
+
+
+# ---------------------------------------------------------------------------
+# the online service on the card
+# ---------------------------------------------------------------------------
+
+
+def _service_table(name, rows, attrs):
+    from repro_torch.data import scaled_paper_dataset
+
+    stream = scaled_paper_dataset(name, max_rows=rows, max_attrs=attrs)
+    return stream, stream.table()
+
+
+def test_capture_overlapping_a_merge_gives_solo_answers(cuda_device):
+    """Dataset B merges batch after batch on another thread while dataset
+    A's reductions capture fresh CUDA graphs.  The device guard holds each
+    merge out of each capture (one of them waits, and the guard counts
+    it); A's answers equal their solo runs and B ends with the content of a
+    one-shot build."""
+    import threading
+
+    from repro_torch.core.guard import device_guard
+    from repro_torch.service import DatasetHandle
+
+    stream, (x, d) = _service_table("kdd99", 240_000, 41)
+    kw = dict(n_dec=stream.n_dec, v_max=stream.v_max, device=cuda_device)
+    a = DatasetHandle.create(x[:120_000], d[:120_000], **kw)
+    b = DatasetHandle.create(x[120_000:150_000], d[120_000:150_000], **kw)
+    guard = device_guard(cuda_device)
+    waits = guard.capture_waits + guard.shared_waits
+    engine.release_graphs()                     # every config below captures afresh
+    stop, merged = threading.Event(), [150_000]
+
+    def merger():
+        while not stop.is_set() and merged[-1] < 240_000:
+            lo = merged[-1]
+            b.update(x[lo:lo + 3_000], d[lo:lo + 3_000])
+            merged.append(lo + 3_000)
+
+    t = threading.Thread(target=merger)
+    t.start()
+    configs = [("PR", "segment"), ("SCE", "segment"), ("PR", "sweep_xla")]
+    try:
+        got = [a.reduce(delta, backend=backend) for delta, backend in configs]
+    finally:
+        stop.set()
+        t.join(120)
+    assert len(merged) > 2 and guard.capture_waits + guard.shared_waits > waits
+    for (delta, backend), r in zip(configs, got):
+        solo = plar_reduce(source=a.gran, delta=delta, backend=backend, device=cuda_device)
+        assert _same(r, solo), (delta, backend)
+    end = merged[-1]
+    one_shot = DatasetHandle.create(x[120_000:end], d[120_000:end], **kw)
+    assert b.fingerprint == one_shot.fingerprint
+    assert _same(b.reduce("PR"), one_shot.reduce("PR"))
+
+
+def test_timed_out_dispatch_retry_gives_untimed_answer_on_card(cuda_device):
+    """A dispatch that captures takes longer than ``timeout_s``: the retries
+    wait on the running call, so the engine runs once and the answer is the
+    untimed server's, byte for byte."""
+    import asyncio
+
+    from repro_torch import obs
+    from repro_torch.service import ReductServer, RetryPolicy
+
+    stream, (x, d) = _service_table("shuttle", 4_000, 9)
+
+    async def serve(retry):
+        engine.release_graphs()                 # the dispatch captures: it is slow
+        async with ReductServer(retry=retry, device=cuda_device) as srv:
+            await srv.submit("s", x, d, n_dec=stream.n_dec, v_max=stream.v_max)
+            runs = obs.get_registry().snapshot().get("plar_engine_runs_total", 0)
+            r = await srv.query("s", "SCE")
+            runs = obs.get_registry().snapshot()["plar_engine_runs_total"] - runs
+            return r, dict(srv.stats), runs
+
+    untimed, _, _ = asyncio.run(serve(None))
+    timed, stats, runs = asyncio.run(serve(RetryPolicy(
+        timeout_s=0.002, max_attempts=500, base_delay_s=0.001, max_delay_s=0.005)))
+    assert stats["retries"] >= 1 and stats["quarantined"] == 0
+    assert runs == 1                            # one engine run, adopted by its retries
+    assert _same(timed, untimed)
+
+
+def test_handle_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A handle on the card checkpoints and restores onto the card (and onto
+    the CPU) with the same arrays, fingerprint and cached results; the
+    restored handle's warm repair equals the live one's."""
+    from repro_torch.service import DatasetHandle, ServiceCheckpointer
+
+    stream, (x, d) = _service_table("kdd99", 200_000, 41)
+    h = DatasetHandle.create(x, d, n_dec=stream.n_dec, v_max=stream.v_max, device=cuda_device)
+    for delta in ("PR", "SCE"):
+        h.reduce(delta)
+    ServiceCheckpointer(str(tmp_path), device=cuda_device).save({"ds": h})
+    _step, handles = ServiceCheckpointer(str(tmp_path), device=cuda_device).restore()
+    h2 = handles["ds"]
+    assert h2.device.type == "cuda"
+    for k in ("x", "d", "w", "valid", "num", "n_total"):
+        assert torch.equal(getattr(h2.gran, k), getattr(h.gran, k)), k
+    assert h2.fingerprint == h.fingerprint
+    _step, on_cpu = ServiceCheckpointer(str(tmp_path), device="cpu").restore()
+    assert on_cpu["ds"].fingerprint == h.fingerprint
+    for delta in ("PR", "SCE"):
+        assert _same(h2._results[(delta, (("exact", True),))],
+                     h._results[(delta, (("exact", True),))])
+        live, restored = h.reduce(delta), h2.reduce(delta)
+        assert h2.last_was_warm and _same(restored, live)
+
+
+def test_server_streams_shuttle_on_card(cuda_device):
+    """The server on the card streams the shuttle table (58,000 x 9) in a
+    half and 4 updates.  Each round: solo PR queries on ``segment`` (device
+    engine), ``sweep``, ``fused`` and ``pallas`` (host loop, the three
+    kernels) give equal reducts and bit-equal Θ_PR, and a window of four
+    clients (PR, SCE, LCE, CCE) is one stacked dispatch.  Every answer
+    equals the same stream served on the CPU (reducts equal, Θ_PR bit-equal,
+    the other measures within rtol=1e-5) and reaches its stopping target;
+    nothing was retried.  (At this size the warm repair keeps a prefix that
+    a cold run orders differently, in the JAX package as here: repair
+    guarantees a valid reduct, not the cold run's.)"""
+    import asyncio
+
+    from repro_torch.core.measures import f32_threshold
+    from repro_torch.service import ReductServer
+
+    stream, (x, d) = _service_table("shuttle", 58_000, 9)
+    half, rest = len(x) // 2, len(x) - len(x) // 2
+
+    async def drive(device, backends):
+        rounds = []
+        async with ReductServer(device=device) as srv:
+            await srv.submit("s", x[:half], d[:half], n_dec=stream.n_dec, v_max=stream.v_max)
+            for i in range(5):
+                if i:
+                    lo, hi = half + (i - 1) * rest // 4, half + i * rest // 4
+                    await srv.update("s", x[lo:hi], d[lo:hi])
+                solo = [await srv.query("s", "PR", backend=b) for b in backends]
+                runs = srv.stats["engine_runs"]
+                window = await asyncio.gather(*[srv.query("s", m) for m in DELTAS])
+                rounds.append((solo, window, srv.stats["engine_runs"] - runs,
+                               [q.batch_size for q in list(srv.requests)[-4:]]))
+        return rounds, srv.summary()
+
+    rounds, summary = asyncio.run(drive(cuda_device, ("segment", "sweep", "fused", "pallas")))
+    cpu_rounds, _ = asyncio.run(drive("cpu", ("segment",)))
+    for (solo, window, runs, sizes), (cpu_solo, cpu_window, _, _) in zip(rounds, cpu_rounds):
+        for r in solo[1:]:
+            assert (r.reduct, r.theta_history) == (solo[0].reduct, solo[0].theta_history)
+        assert runs == 1 and sizes == [4, 4, 4, 4]
+        for delta, r, rc in zip(["PR"] + DELTAS, [solo[0]] + window, cpu_solo + cpu_window):
+            assert r.reduct == rc.reduct, delta
+            if delta == "PR":
+                assert r.theta_history == rc.theta_history
+            else:
+                np.testing.assert_allclose(r.theta_history, rc.theta_history, rtol=1e-5,
+                                           atol=1e-7)
+            assert r.theta_history[-1] <= f32_threshold(r.theta_full, 1e-6), delta
+    for k in ("retries", "stale_served", "quarantined", "flush_failures"):
+        assert summary[k] == 0, k

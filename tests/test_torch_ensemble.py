@@ -6,8 +6,9 @@ evaluations equal, Θ_PR bit-equal, SCE/LCE/CCE within rtol=1e-6,
 atol=1e-7).  Bags are numpy's ``default_rng`` draws, array for array the
 JAX package's.
 
-Mirrors ``tests/test_ensemble.py`` except its two service tests (the service
-tier is not ported).
+Mirrors ``tests/test_ensemble.py``, its two service tests included
+(``DatasetHandle.reduce_ensemble`` and ``ReductServer.query_ensemble``,
+each held against the JAX package's service on the same table).
 """
 import dataclasses
 
@@ -202,3 +203,63 @@ def test_ensemble_validation_errors():
     with pytest.raises(ValueError, match="out of range"):
         plar_reduce_ensemble(x, d, configs=[{"delta": "PR", "warm_start": [9]}], device=CPU)
     assert "fused_xla" not in ENSEMBLE_BACKENDS
+
+
+# ---------------------------------------------------------------------------
+# service layer
+# ---------------------------------------------------------------------------
+
+
+def test_handle_reduce_ensemble_members_match_direct():
+    """DatasetHandle.reduce_ensemble == the driver on the handle's
+    granularity, members land in the handle's result cache, and each member
+    equals the JAX handle's."""
+    from repro.service import DatasetHandle as JHandle
+    from repro_torch.service import DatasetHandle
+
+    rng = np.random.default_rng(17)
+    x, d = _table(rng, 300, 8, m=3)
+    h = DatasetHandle.create(x, d, n_dec=3, v_max=4, device=CPU)
+    configs = [{"delta": dd} for dd in DELTAS]
+    rs = h.reduce_ensemble(configs)
+    direct = plar_reduce_ensemble(source=h.gran, configs=configs, device=CPU)
+    for r_h, r_d in zip(rs, direct):
+        _assert_member(r_h, r_d)
+    assert set(h._results) == {(dd, (("exact", True),)) for dd in DELTAS}
+    jrs = JHandle.create(x, d, n_dec=3, v_max=4).reduce_ensemble(configs)
+    for dd, r_h, r_j in zip(DELTAS, rs, jrs):
+        _assert_jax(dd, r_h, r_j)
+
+
+def test_server_query_ensemble_cache_and_stats():
+    """query_ensemble: cold grid → C cold configs; repeat → pure cache hit;
+    overlapping grid → only the new configs re-run (as a smaller grid); the
+    counters and answers are the JAX server's."""
+    import asyncio
+
+    from repro.service import ReductServer as JServer
+    from repro_torch.service import ReductServer
+
+    rng = np.random.default_rng(31)
+    x, d = _table(rng, 240, 7, m=3)
+
+    async def drive(srv):
+        async with srv:
+            await srv.submit("t", x, d, n_dec=3, v_max=4)
+            r1 = await srv.query_ensemble("t", ["PR", "SCE"])
+            r2 = await srv.query_ensemble("t", ["PR", "SCE"])
+            r3 = await srv.query_ensemble("t", ["PR", "SCE", "LCE"])
+            return r1, r2, r3, dict(srv.stats), list(srv.requests)
+
+    r1, r2, r3, stats, reqs = asyncio.run(drive(ReductServer(device=CPU)))
+    assert [r.reduct for r in r1] == [r.reduct for r in r2]
+    assert [r.reduct for r in r3[:2]] == [r.reduct for r in r1]
+    assert stats["ensemble_queries"] == 3
+    assert stats["ensemble_configs"] == 7
+    assert stats["cold"] == 3            # PR, SCE once + LCE once
+    assert stats["cache_hits"] == 4      # r2's two + r3's two
+    assert not reqs[0].cached and reqs[1].cached and not reqs[2].cached
+    _j1, _j2, j3, jstats, _jreqs = asyncio.run(drive(JServer()))
+    assert stats == jstats
+    for dd, r_t, r_j in zip(["PR", "SCE", "LCE"], r3, j3):
+        _assert_jax(dd, r_t, r_j)

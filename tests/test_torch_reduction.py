@@ -239,8 +239,25 @@ def test_cli_ensemble_matches_jax_cli(capsys, monkeypatch):
     assert "not supported with --ensemble" in capsys.readouterr().err
 
 
+def test_port_exports_every_reference_name():
+    """``repro_torch.core`` and ``repro_torch.service`` export every name the
+    JAX package's ``repro.core`` and ``repro.service`` list in ``__all__``,
+    and each exported name resolves."""
+    import repro.core
+    import repro.service
+    import repro_torch.core
+    import repro_torch.service
+
+    for ref, port in ((repro.core, repro_torch.core), (repro.service, repro_torch.service)):
+        missing = sorted(set(ref.__all__) - set(port.__all__))
+        assert not missing, f"{port.__name__} lacks {missing}"
+        for name in port.__all__:
+            assert hasattr(port, name), f"{port.__name__}.{name} is listed but not defined"
+
+
 def test_port_imports_no_jax_or_repro():
-    """Importing and running the port (reductions, and LM serving of both
+    """Importing and running the port (reductions, the reduct service with
+    one query served through a CPU ``ReductServer``, and LM serving of both
     ported families) leaves jax and repro out of sys.modules."""
     code = (
         "import sys, numpy as np\n"
@@ -259,6 +276,15 @@ def test_port_imports_no_jax_or_repro():
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.launch.profile_serve, repro_torch.launch.profile_sweep\n"
         "import repro_torch.launch.time_rwkv6\n"
+        "import repro_torch.service, repro_torch.core.recovery, repro_torch.train.checkpoint\n"
+        "import repro_torch.launch.reduce_server, asyncio\n"
+        "from repro_torch.service import ReductServer\n"
+        "async def serve():\n"
+        "    async with ReductServer(device='cpu') as srv:\n"
+        "        await srv.submit('t', x[:60], d[:60], n_dec=2, v_max=3)\n"
+        "        await srv.update('t', x[60:], d[60:])\n"
+        "        return await srv.query('t', 'PR')\n"
+        "assert asyncio.run(serve()).reduct == plar_reduce(x, d, delta='PR', device='cpu').reduct\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.serving import Request, ServingEngine\n"
