@@ -38,7 +38,7 @@ is missing.  Phases, each printing one JSON line:
    every kernel's launch count > 0 in that phase; then a small input
    (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}`` (after phases 6-10).
+   ``{"ok": true, "device": {...}}`` (after phases 6-12).
 
 The LM serving slice adds:
 
@@ -123,12 +123,41 @@ card:
     > 0 after).  Any retry, stale serve, quarantine, flush or checkpoint
     failure fails the phase.  The engine's graphs are released after it.
 
+The mesh-driver slice adds, after phase 11 (the engine's graphs released):
+
+12. distributed: this process as a world of one NCCL rank, mesh (1, 1)
+    (``("data", "model")``), through ``plar_reduce_distributed``.  On phase
+    4's kdd99 granularity (99,741 live granules, capacity 131,072, so the
+    device engine evaluates at the top rung of 1,310,720 bins): PR on
+    ``all_reduce`` and ``reduce_scatter``, each on the host loop and on the
+    device engine (its body, with the collectives, captured as a CUDA
+    graph), PR on ``fused`` (host loop: the CUDA fused-Θ kernel's raw
+    partial every iteration, since one data shard never regroups), and SCE
+    on ``all_reduce``; then the 5,000,000 x 41 table itself, its
+    granularity built on the card by the per-shard GrC step, PR on
+    ``all_reduce`` with ``engine="auto"``, which must take the host loop
+    (the device engine's static working set would be 5,000,000·V bins).
+    At one data shard the driver's ``reduce_scatter`` merge is its
+    ``all_reduce`` (as in JAX), so the phase also runs the adapter's NCCL
+    ``reduce_scatter_tensor`` itself on a ``[41, 131,072, 23]``
+    contingency, eagerly and captured in a CUDA graph, each output equal
+    to its input.  Every reduct and core equals phase 4's ``sweep``
+    run of the same measure, every Θ_PR history bit for bit, SCE's within
+    rtol=1e-6, atol=1e-7; the fused kernel launched in the phase (counts set
+    to 0 just before it).  Prints each run's seconds, iterations, fused and
+    fallen-back iterations, the engine that ran, the greedy loop's
+    collective bytes an iteration (host loop; the one-time gathers of the
+    core and Θ(D|C) left out) or bodies, polls and captures (device
+    engine), the phase's seconds and peak device memory.  The process
+    group is destroyed at its end.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
 RWKV6's prefill at B = 1, T = 2,048 (its top-level numbers) and decode at
 B = 4, T = 1 (``paths``), launches from phase 7.  The three Θ kernels'
-entries also carry ``service_launches``, their launches in phase 11.
+entries also carry ``service_launches``, their launches in phase 11, and
+``mesh_launches``, their launches in phase 12.
 """
 from __future__ import annotations
 
@@ -194,6 +223,12 @@ SERVICE = dict(first=2_500_000, update_rows=625_000, updates=4,
                b_first=1_000_000, a_touch=1_000, shards=4, shard_chunk_rows=1_048_576,
                drop=2)
 CARD_BYTES = 80e9        # the H100's device memory
+MESH_SCATTER_SHAPE = (41, 131_072, 23)   # [nc, bins, m] of phase 12's reduce_scatter check
+MESH_RUNS = [  # (delta, collective, engine) of phase 12 on the kdd99 granularity
+    ("PR", "all_reduce", "host"), ("PR", "all_reduce", "device"),
+    ("PR", "reduce_scatter", "host"), ("PR", "reduce_scatter", "device"),
+    ("PR", "fused", "host"), ("SCE", "all_reduce", "host"),
+]
 
 
 def emit(obj) -> None:
@@ -817,6 +852,151 @@ def phase_service(torch, obs, ops, x, d, stream, card: str) -> dict:
     return out
 
 
+def _mesh_run(torch, obs, fn, **kw) -> dict:
+    """One ``plar_reduce_distributed`` call: its result, seconds, the fused
+    schedule's iterations and fallbacks, the engine that ran, and its span:
+    ``engine.dispatch`` (device engine) or ``mesh.loop`` (host loop, whose
+    collectives all run from Python: the loop's bytes an iteration, the
+    one-time gathers of the core and Θ(D|C) left out)."""
+    names = ("plar_mesh_fused_iterations_total", "plar_mesh_fused_fallbacks_total")
+    before_c = [obs.counter(n).value for n in names]
+    before = obs.get_tracer().recorded
+    t0 = time.perf_counter()
+    r = fn(**kw)
+    torch.cuda.synchronize()
+    fused, fallback = (obs.counter(n).value - b for n, b in zip(names, before_c))
+    device, host = (_new_spans(obs, before, n) for n in ("engine.dispatch", "mesh.loop"))
+    if (len(device), len(host)) not in ((1, 0), (0, 1)):
+        raise AssertionError(f"expected one engine.dispatch or one mesh.loop span, got "
+                             f"{len(device)} and {len(host)}")
+    out = dict(delta=kw["delta"], collective=kw["collective"], engine=kw["engine"],
+               engine_ran="device" if device else "host",
+               reduct=r.reduct, core=r.core, iterations=r.iterations, theta_full=r.theta_full,
+               theta_history=r.theta_history, elapsed_s=r.elapsed_s,
+               wall_s=time.perf_counter() - t0, fused_iterations=fused,
+               fallback_iterations=fallback)
+    if device:
+        out.update({k: device[0].args[k] for k in ("loop_s", "bodies", "polls", "captures",
+                                                   "capture_s")})
+    else:
+        out["loop_s"] = sum(r.per_iteration_s)
+        out["loop_collective_bytes"] = host[0].args["collective_bytes"]
+        out["collective_bytes_per_iteration"] = (host[0].args["collective_bytes"]
+                                                 / max(r.iterations, 1))
+    return out
+
+
+def _reduce_scatter_check(torch, coll) -> dict:
+    """``_MeshColl.psum_scatter_bins`` (NCCL ``reduce_scatter_tensor``) on a
+    world of one rank, eagerly and inside a CUDA graph: the driver's merge
+    takes it only at two or more data shards, which one card never has.  At
+    one shard every bin stays, so the output equals the input."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cont = torch.randint(0, 1 << 20, MESH_SCATTER_SHAPE, generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.float32)
+    eager = coll.psum_scatter_bins(cont.clone())
+    static_in = cont.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up outside the capture
+        coll.psum_scatter_bins(static_in.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = coll.psum_scatter_bins(static_in)
+    static_in.copy_(cont)
+    graph.replay()
+    torch.cuda.synchronize()
+    out = dict(shape=list(MESH_SCATTER_SHAPE), eager_equal=bool(torch.equal(eager, cont)),
+               captured_equal=bool(torch.equal(static_out, cont)))
+    del graph, static_in, static_out, eager, cont
+    return out
+
+
+def phase_distributed(torch, obs, ops, x, d, main_runs, card: str) -> dict:
+    """The mesh driver in this process: a world of one NCCL rank, mesh
+    (1, 1), on phase 4's kdd99 granularity and on its 5,000,000 x 41
+    table; every answer held against phase 4's ``sweep`` runs."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import resolve_granularity
+    from repro_torch.core.distributed import plar_reduce_distributed
+    from repro_torch.core.engine import _MeshColl
+    from repro_torch.distributed import init_process_group, make_mesh
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_")) / "store"
+    init_process_group("cuda", rank=0, world_size=1, store_path=str(store), timeout_s=300)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        gran = resolve_granularity(x, d, device="cuda")
+        sweep = {o["delta"]: o for o in main_runs if o["backend"] == "sweep"}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()          # the mesh phase's counts only
+        t0 = time.perf_counter()
+        runs = [_mesh_run(torch, obs, plar_reduce_distributed, mesh=mesh, source=gran,
+                          delta=delta, collective=coll, engine=eng)
+                for delta, coll, eng in MESH_RUNS]
+        del gran
+        runs.append(_mesh_run(torch, obs, plar_reduce_distributed, x=x, d=d, mesh=mesh,
+                              delta="PR", collective="all_reduce", engine="auto"))
+        runs[-1]["input"] = "x, d (GrC built on the card by _grc_build_step)"
+        scatter = _reduce_scatter_check(torch, _MeshColl(mesh))
+        elapsed = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = ops.launch_counts()
+        for run in runs:
+            want = sweep[run["delta"]]
+            run["equal_to_phase4"] = (run["reduct"], run["core"]) == (want["reduct"], want["core"])
+            if run["delta"] == "PR":
+                run["theta_bit_equal"] = run["theta_history"] == want["theta_history"]
+            else:
+                run["theta_within_tol"] = len(run["theta_history"]) == len(
+                    want["theta_history"]) and all(
+                    math.isclose(a, b, rel_tol=1e-6, abs_tol=1e-7)
+                    for a, b in zip(run["theta_history"], want["theta_history"]))
+            emit({"phase": "distributed", "card": card, **{
+                k: v for k, v in run.items() if k != "theta_history"}})
+        fused = sum(r["fused_iterations"] for r in runs)
+        fallback = sum(r["fallback_iterations"] for r in runs)
+        out = dict(mesh=dict(mesh.shape), world=dist.get_world_size(), backend=dist.get_backend(),
+                   runs=runs, elapsed_s=elapsed,
+                   iterations=sum(r["iterations"] for r in runs),
+                   fused_share=fused / max(fused + fallback, 1), fused_iterations=fused,
+                   fallback_iterations=fallback, reduce_scatter=scatter,
+                   max_memory_allocated=peak, launches=launches)
+        emit({"phase": "distributed_check", "card": card, **{
+            k: v for k, v in out.items() if k != "runs"}})
+        bad = [(r["delta"], r["collective"], r["engine"]) for r in runs
+               if not (r["equal_to_phase4"] and r.get("theta_bit_equal", True)
+                       and r.get("theta_within_tol", True))]
+        if bad:
+            raise AssertionError(f"mesh runs differ from phase 4's sweep runs: {bad}")
+        if runs[-1]["engine_ran"] != "host":
+            raise AssertionError("engine='auto' took the device engine on the x, d path, "
+                                 "whose static working set no card holds")
+        if not (scatter["eager_equal"] and scatter["captured_equal"]):
+            raise AssertionError(f"reduce_scatter on a world of one rank changed its input: "
+                                 f"{scatter}")
+        if launches["fused_theta"] <= 0:
+            raise AssertionError("the fused-Θ kernel was not launched by the mesh phase")
+        if fallback or fused <= 0:
+            raise AssertionError(f"fused schedule: {fused} fused, {fallback} fallen back "
+                                 "(one data shard never falls back)")
+        if not peak < CARD_BYTES:
+            raise AssertionError(f"peak device memory {peak} bytes")
+        return out
+    finally:
+        from repro_torch.core import engine
+
+        engine.release_graphs()
+        dist.destroy_process_group()
+
+
 def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
     """The flash and RWKV6 kernels vs their plain versions at the serving
     path's full-width shapes; times and bounds."""
@@ -1116,6 +1296,9 @@ def main() -> None:
     del gran
     engine.release_graphs()
     report["service"] = phase_service(torch, obs, ops, x, d, kdd99, smi)
+    engine.release_graphs()
+    report["distributed"] = phase_distributed(torch, obs, ops, x, d,
+                                              report["main_path"]["runs"], smi)
     obs.disable()
     del x, d
     report["lm_kernels_vs_plain"] = phase_lm_kernels(torch, fa, rk, smi)
@@ -1140,6 +1323,7 @@ def main() -> None:
             "at": {"n_bins": top, "delta": pick["delta"], **SHAPE},
         }
         entry["service_launches"] = report["service"]["launches"][name]
+        entry["mesh_launches"] = report["distributed"]["launches"][name]
         if name != "contingency":   # the Θ kernels: the shared segment kernels, and skewed r
             entry["headers"] = [SOURCES["segments"]]
             entry["ms_at_K"] = {str(r["K"]): r["ms"] for r in rows

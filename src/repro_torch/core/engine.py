@@ -38,8 +38,14 @@ loop.  ``ladder=True`` is accepted and every body evaluates at the top rung
 keeps the full bound on every path.  A device-side rung choice (JAX's
 ``lax.switch`` on ``st.k``) has no counterpart in a CUDA graph.
 
-Collectives go through a small adapter (:class:`_LocalColl`, the identity)
-so that a mesh driver can reuse the same body.
+Collectives go through a small adapter, the one seam between the drivers:
+:class:`_LocalColl` is the identity; :class:`_MeshColl` sums contingencies
+over the data shards of a mesh and gathers per-model-shard Θ values, with
+``torch.distributed`` on one rank a mesh position, and
+:func:`make_engine_run_mesh` runs the same gated body over it
+(:mod:`repro_torch.core.distributed`).  The ``fused`` collective schedule
+stays on the mesh's host loop, as in JAX: its class regrouping moves
+granules between ranks between iterations.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 
@@ -62,7 +69,14 @@ from .granularity import (
     ids_from_presence,
     presence_bitmap,
 )
-from .plan import candidate_theta, contingency_from_ids, ids_by_sort, ladder_rungs
+from .plan import (
+    candidate_contingency,
+    candidate_theta,
+    contingency_from_ids,
+    ids_by_sort,
+    ladder_rungs,
+    sweep_contingency,
+)
 
 __all__ = [
     "SelectionState",
@@ -83,6 +97,8 @@ __all__ = [
     "ENSEMBLE_DELTAS",
     "ENSEMBLE_BACKENDS",
     "release_graphs",
+    "make_engine_run_mesh",
+    "merge_candidate_cont",
 ]
 
 # Θ backends the engine runs: the plain ones, which the JAX package computes
@@ -228,16 +244,94 @@ class _Cfg:
 
 
 # ---------------------------------------------------------------------------
-# collective adapter — the seam a mesh driver plugs into
+# collective adapters — the one seam between the two drivers
 # ---------------------------------------------------------------------------
 
 
 class _LocalColl:
-    """Single process: the data-axis sum is the identity.  A mesh driver
-    passes an adapter whose ``psum_data`` sums over its data shards."""
+    """Single process: every collective is the identity."""
+
+    n_data = 1
 
     def psum_data(self, x):
         return x
+
+    def gather_model(self, thetas_local, n_attrs):
+        return thetas_local[:n_attrs]
+
+
+class _MeshColl:
+    """One rank of a mesh (:class:`repro_torch.distributed.api.Mesh`):
+    granules sharded over the data axes, candidates over 'model'.
+
+    JAX's ``psum`` over the data axes is ``dist.all_reduce`` over the mesh's
+    data group, its tiled ``all_gather`` over 'model' an
+    ``all_gather_into_tensor`` over the model group, and ``psum_scatter``
+    along the bin axis a ``reduce_scatter_tensor`` with the bins moved to dim
+    0, so shard i keeps bins ``[i·nb/nd, (i+1)·nb/nd)`` as in JAX.  The sums
+    run in place on their (contiguous) argument.  Every rank must call the
+    collectives in one order: the loops that drive this adapter branch only
+    on replicated values (sums after the reduction, Θ after the gather).
+
+    On the card the engine captures these collectives (NCCL) inside the
+    body's CUDA graph.  Collective bytes are counted in
+    ``plar_mesh_collective_bytes_total`` at each call from Python (a
+    replayed CUDA graph's are not counted).
+    """
+
+    def __init__(self, mesh):
+        self.daxes = mesh.data_axes
+        self.n_data = mesh.n_data
+        self.has_model = mesh.model_group is not None
+        self.n_model = mesh.n_model
+        self.model_index = mesh.model_index
+        self.data_group = mesh.data_group
+        self.model_group = mesh.model_group
+
+    @staticmethod
+    def bytes_counter():
+        return obs.counter("plar_mesh_collective_bytes_total",
+                           "bytes handed to the mesh's collectives (eager calls)")
+
+    @classmethod
+    def _count(cls, t: torch.Tensor) -> None:
+        cls.bytes_counter().inc(t.numel() * t.element_size())
+
+    def psum_data(self, x):
+        if not self.daxes:
+            return x
+        x = x.contiguous()
+        self._count(x)
+        dist.all_reduce(x, group=self.data_group)
+        return x
+
+    def psum_scatter_bins(self, cont):
+        """``psum_scatter(cont, daxes, scatter_dimension=1, tiled=True)``:
+        ``[nc, nb, m]`` summed over the data shards, bins ``[i·nb/nd,
+        (i+1)·nb/nd)`` kept on shard i."""
+        bins_first = cont.transpose(0, 1).contiguous()          # [nb, nc, m]
+        out = bins_first.new_empty((bins_first.shape[0] // self.n_data,) + bins_first.shape[1:])
+        self._count(bins_first)
+        dist.reduce_scatter_tensor(out, bins_first, group=self.data_group)
+        return out.transpose(0, 1)
+
+    def gather_data(self, x):
+        """This rank's shard of a data-sharded array → the whole array
+        (shards concatenated along dim 0 in data-shard order)."""
+        x = x.contiguous()
+        out = x.new_empty((self.n_data * x.shape[0],) + tuple(x.shape[1:]))
+        self._count(x)
+        dist.all_gather_into_tensor(out, x, group=self.data_group)
+        return out
+
+    def gather_model(self, thetas_local, n_attrs):
+        if self.has_model:
+            th = thetas_local.contiguous()
+            out = th.new_empty((self.n_model * th.shape[0],))
+            self._count(th)
+            dist.all_gather_into_tensor(out, th, group=self.model_group)
+            thetas_local = out
+        return thetas_local[:n_attrs]
 
 
 _LOCAL = _LocalColl()
@@ -394,19 +488,21 @@ def _cond(st: SelectionState, op: _Operands, n_attrs: int) -> torch.Tensor:
     return in_core | greedy
 
 
-def _select(cfg, delta: str, st: SelectionState, op: _Operands) -> SelectionState:
+def _select(cfg, delta: str, st: SelectionState, op: _Operands, coll=_LOCAL,
+            eval_thetas=_eval_local) -> SelectionState:
     """One greedy iteration, ungated: pick (forced or masked argmin-with-ties),
-    advance, shrink, record."""
+    advance, shrink, record.  ``coll`` and ``eval_thetas(cfg, delta, st, op)``
+    are the mesh driver's seam (default: one process)."""
     forced = st.n_selected < op.core_count
     core_pick = _at(op.core_attrs, torch.clamp(st.n_selected, max=cfg.n_attrs - 1))
-    thetas = torch.where(st.remaining, _eval_local(cfg, delta, st, op), float("inf"))
+    thetas = torch.where(st.remaining, eval_thetas(cfg, delta, st, op), float("inf"))
     # lowest index within tie_tol of the minimum — the device twin of
     # measures.argmin_with_ties (argmax returns the first maximal index)
     in_band = (thetas <= thetas.min() + op.tie_tol).to(torch.uint8)
     best = torch.where(forced, core_pick, torch.argmax(in_band).to(torch.int32))
 
     new_ids, k_new, theta, g_pure = _advance(
-        cfg, _LOCAL, st.r_ids, _at(op.x, best, dim=1), op.d, op.w, st.active, op.n,
+        cfg, coll, st.r_ids, _at(op.x, best, dim=1), op.d, op.w, st.active, op.n,
         eval_theta=partial(measures.evaluate, delta))
     theta_rec = theta + st.pr_correction          # correction *before* this fold
 
@@ -449,6 +545,70 @@ def _solo_body(cfg: _Cfg, op: _Operands, st: SelectionState):
 
 
 # ---------------------------------------------------------------------------
+# the mesh body: the same gated iteration over a collective adapter
+# ---------------------------------------------------------------------------
+
+
+def merge_candidate_cont(delta, cont, n, coll, collective: str):
+    """Per-shard candidate contingency ``[nc, nb, m]`` → merged thetas [nc].
+
+    The §3.2 collective schedules, shared by both mesh step implementations
+    (this engine's :func:`_eval_mesh` and the host loop's
+    ``distributed._eval_step``): ``all_reduce`` sums the full contingency
+    over the data shards (paper-faithful DP); ``reduce_scatter`` scatters
+    contingency *rows* over the data shards, reduces θ locally
+    (row-separability, Eq. 8) and sums the scalars.
+    """
+    nb = cont.shape[1]
+    if collective == "reduce_scatter" and coll.n_data > 1 and nb % coll.n_data == 0:
+        cont_slice = coll.psum_scatter_bins(cont)
+        return coll.psum_data(measures.theta_rows(delta, cont_slice, n).sum(dim=-1))
+    return measures.evaluate(delta, coll.psum_data(cont), n)
+
+
+def _mesh_cand_slab(cfg, coll, n_model: int, x: torch.Tensor) -> torch.Tensor:
+    """This model shard's pre-transposed candidate slab ``[A_loc, G_loc]``:
+    candidates ``[i·A_loc, (i+1)·A_loc)`` of model shard i, the padding
+    clamped to ``n_attrs − 1``.  Built once a run, outside the loop."""
+    a_loc = -(-cfg.n_attrs // n_model)
+    midx = coll.model_index if coll.has_model else 0
+    cand = torch.clamp(midx * a_loc + torch.arange(a_loc, device=x.device), max=cfg.n_attrs - 1)
+    return x.index_select(1, cand).t().contiguous().to(torch.int32)
+
+
+def _eval_mesh(cfg, coll, collective: str, delta: str, st: SelectionState,
+               op: _Operands) -> torch.Tensor:
+    """Mesh candidate evaluation: this shard's slab ``op.x_t`` (see
+    :func:`_mesh_cand_slab`) → contingencies merged over the data shards →
+    Θ gathered over 'model', ``[A]``.
+
+    Every body evaluates at the top rung ``cfg.n_bins = cap·V`` (``cap`` the
+    mesh's whole capacity, ``nd·cap_per_shard``, so ``reduce_scatter``
+    tiles), as the solo engine does (module doc).
+    """
+    if cfg.backend == "sweep_xla":
+        # fused-pack contingency: packed [A_loc, G_loc] is never staged
+        cont = sweep_contingency(op.x_t, st.r_ids, op.d, op.w, st.active, v_max=cfg.v_max,
+                                 n_bins=cfg.n_bins, m=cfg.m)
+    else:
+        packed = st.r_ids[None, :] * cfg.v_max + op.x_t
+        cont = candidate_contingency(packed, op.d, op.w, st.active, n_bins=cfg.n_bins, m=cfg.m)
+    th_loc = merge_candidate_cont(delta, cont, op.n, coll, collective)
+    return coll.gather_model(th_loc, cfg.n_attrs) + st.pr_correction
+
+
+def _mesh_body(cfg: _Cfg, coll, collective: str, op: _Operands, st: SelectionState):
+    """The solo body over a mesh adapter: ``(state after it, done)``.  Every
+    branch reads replicated values only, so all ranks run the same bodies."""
+    def eval_thetas(cfg_, delta, st_, op_):
+        return _eval_mesh(cfg_, coll, collective, delta, st_, op_)
+
+    live = _cond(st, op, cfg.n_attrs)
+    out = st.where(live, _select(cfg, cfg.delta, st, op, coll, eval_thetas))
+    return out, ~_cond(out, op, cfg.n_attrs)
+
+
+# ---------------------------------------------------------------------------
 # the loop: a body captured once and replayed (card), or run eagerly (CPU)
 # ---------------------------------------------------------------------------
 
@@ -476,6 +636,7 @@ def release_graphs() -> None:
     _make_engine_run.cache_clear()
     _make_engine_step.cache_clear()
     _make_ensemble_run.cache_clear()
+    _make_engine_run_mesh.cache_clear()
     _graph_pools.clear()
     gc.collect()
     if torch.cuda.is_available():
@@ -661,6 +822,50 @@ def _make_engine_run(*key):
     obs.counter("plar_engine_run_factories_total",
                 "distinct while_loop engine configs traced").inc()
     return _EngineRun(_Cfg(*key))
+
+
+class _EngineRunMesh:
+    """The mesh reduction as one loop on each rank: ``run(st, x, d, w, n,
+    theta_full, core_attrs, core_count) -> final state``, with this rank's
+    shard of ``x``/``d``/``w`` and of the state's granule fields, and the
+    replicated rest.  The body is :func:`_mesh_body`."""
+
+    def __init__(self, cfg: _Cfg, mesh, collective: str):
+        self.cfg = cfg
+        self.coll = _MeshColl(mesh)
+        self.loop = _Loop(partial(_mesh_body, cfg, self.coll, collective))
+
+    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
+        cfg = self.cfg
+        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
+                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
+        op = dataclasses.replace(op, x_t=_mesh_cand_slab(cfg, self.coll, self.coll.n_model, op.x))
+        max_bodies = min(cfg.n_attrs, int(core_count) + max(cfg.max_sel, 0))
+        return self.loop(op, st, max_bodies)
+
+
+def make_engine_run_mesh(mesh, collective: str, delta: str, backend: str, n_attrs: int,
+                         cap: int, m: int, v_max: int, tol: float, tie_tol: float, max_sel: int,
+                         ladder: bool = False, selector: str = "analytic"):
+    """The mesh reduction as one device-resident loop on each rank of
+    ``mesh`` (``collective``: ``all_reduce`` or ``reduce_scatter``).
+
+    ``cap`` is the mesh's whole granule capacity (``nd · cap_per_shard``):
+    class ids are dense over all shards, so ``cap·V`` bounds every packed
+    id.  The mode is ``incremental``, there is no shrinking, and
+    ``mp_chunk`` is inert (the 'model' axis is the MP level).  Cached per
+    mesh and config: one capture per config on a card.
+    """
+    return _make_engine_run_mesh(mesh, str(collective), *_cfg_key(
+        delta, "incremental", backend, n_attrs, cap, m, v_max, tol, tie_tol, False, max_sel,
+        n_attrs, ladder, selector))
+
+
+@lru_cache(maxsize=None)
+def _make_engine_run_mesh(mesh, collective, *key):
+    obs.counter("plar_engine_run_factories_total",
+                "distinct while_loop engine configs traced").inc()
+    return _EngineRunMesh(_Cfg(*key), mesh, collective)
 
 
 def _forced_attrs(n_attrs: int, forced) -> np.ndarray:

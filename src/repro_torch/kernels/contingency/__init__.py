@@ -8,18 +8,21 @@ from .ops import (
     LAUNCHES,
     contingency,
     fused_theta,
+    fused_theta_raw,
     launch_counts,
     reset_launch_counts,
     sweep_theta,
     theta_scale,
 )
-from .ref import contingency_ref, fused_theta_ref, sweep_theta_ref
+from .ref import contingency_ref, fused_theta_raw_ref, fused_theta_ref, sweep_theta_ref
 
 __all__ = [
     "LAUNCHES",
     "contingency",
     "contingency_ref",
     "fused_theta",
+    "fused_theta_raw",
+    "fused_theta_raw_ref",
     "fused_theta_ref",
     "launch_counts",
     "reset_launch_counts",

@@ -21,9 +21,9 @@ from repro_torch.core.measures import theta_scale
 
 from .. import build
 from ..launching import on_cpu as _on_cpu, stream as _stream
-from .ref import contingency_ref, fused_theta_ref, sweep_theta_ref
+from .ref import contingency_ref, fused_theta_raw_ref, sweep_theta_ref
 
-__all__ = ["LAUNCHES", "contingency", "fused_theta", "sweep_theta",
+__all__ = ["LAUNCHES", "contingency", "fused_theta", "fused_theta_raw", "sweep_theta",
            "reset_launch_counts", "launch_counts", "theta_scale"]
 
 LAUNCHES: Dict[str, int] = {"contingency": 0, "fused_theta": 0, "sweep_theta": 0}
@@ -122,6 +122,49 @@ def contingency(
     return out
 
 
+def fused_theta_raw(
+    packed: torch.Tensor,  # [nc, G] int32
+    d: torch.Tensor,       # [G] int32
+    w: torch.Tensor,       # [G] float32 (already masked: 0 on padding slots)
+    *,
+    delta: str,
+    n_bins: int,
+    n_dec: int,
+) -> torch.Tensor:
+    """The unnormalized Θ'[c] of :func:`fused_theta`: the kernel's own output.
+
+    Raw partials over disjoint granule sets (the data shards of the mesh's
+    ``fused`` schedule) are summed first and scaled once with
+    :func:`theta_scale`, so Θ_PR stays an integer-exact count sum and one
+    division across shard counts.  The plain version is
+    :func:`.ref.fused_theta_raw_ref`.
+    """
+    if _on_cpu("fused_theta", packed=packed, d=d, w=w):
+        return fused_theta_raw_ref(packed, d, w, delta=delta, n_bins=n_bins, n_dec=n_dec)
+    packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
+    _check("fused_theta", {"packed": torch.int32, "d": torch.int32, "w": torch.float32},
+           packed=packed, d=d, w=w)
+    nc, g = packed.shape
+    if d.shape != (g,) or w.shape != (g,):
+        raise ValueError(f"fused_theta: d/w must be [{g}], got {tuple(d.shape)}, {tuple(w.shape)}")
+    code = _check_delta(delta)
+    if n_bins < 1:
+        raise ValueError(f"fused_theta: n_bins must be >= 1, got {n_bins}")
+    dev = d.device
+    _check_smem("fused_theta", n_dec + 1, dev)  # a histogram row and a row value a bin
+    raw = torch.empty((nc,), dtype=torch.float32, device=dev)
+    if nc == 0:
+        return raw
+    with torch.cuda.device(dev):
+        lib, fn = _launcher("fused_theta")
+        workspace = _workspace(lib, "fused_theta", nc, g, n_bins, n_dec)
+        err = fn(packed.data_ptr(), d.data_ptr(), w.data_ptr(), workspace.data_ptr(),
+                 raw.data_ptr(), nc, g, n_bins, n_dec, code, _stream(dev))
+        build.check(lib, err, "fused_theta kernel launch")
+    LAUNCHES["fused_theta"] += 1
+    return raw
+
+
 def fused_theta(
     packed: torch.Tensor,  # [nc, G] int32
     d: torch.Tensor,       # [G] int32
@@ -141,32 +184,10 @@ def fused_theta(
     first, so that each tile reads only its own segment
     (``csrc/fused_theta.cu``; the plain version of that ordering is
     :func:`.ref.candidate_segments`), in one workspace tensor the wrapper
-    allocates.
+    allocates.  The kernel's raw output is :func:`fused_theta_raw`.
     """
-    if _on_cpu("fused_theta", packed=packed, d=d, w=w):
-        return fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
-    packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
-    _check("fused_theta", {"packed": torch.int32, "d": torch.int32, "w": torch.float32},
-           packed=packed, d=d, w=w)
-    nc, g = packed.shape
-    if d.shape != (g,) or w.shape != (g,):
-        raise ValueError(f"fused_theta: d/w must be [{g}], got {tuple(d.shape)}, {tuple(w.shape)}")
-    code = _check_delta(delta)
-    if n_bins < 1:
-        raise ValueError(f"fused_theta: n_bins must be >= 1, got {n_bins}")
-    dev = d.device
-    _check_smem("fused_theta", n_dec + 1, dev)  # a histogram row and a row value a bin
-    raw = torch.empty((nc,), dtype=torch.float32, device=dev)
-    if nc == 0:
-        return theta_scale(delta, raw, n)
-    with torch.cuda.device(dev):
-        lib, fn = _launcher("fused_theta")
-        workspace = _workspace(lib, "fused_theta", nc, g, n_bins, n_dec)
-        err = fn(packed.data_ptr(), d.data_ptr(), w.data_ptr(), workspace.data_ptr(),
-                 raw.data_ptr(), nc, g, n_bins, n_dec, code, _stream(dev))
-        build.check(lib, err, "fused_theta kernel launch")
-    LAUNCHES["fused_theta"] += 1
-    return theta_scale(delta, raw, n)
+    return theta_scale(delta, fused_theta_raw(packed, d, w, delta=delta, n_bins=n_bins,
+                                              n_dec=n_dec), n)
 
 
 def sweep_theta(

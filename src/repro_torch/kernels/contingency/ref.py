@@ -30,7 +30,7 @@ import torch
 from repro_torch.core import measures
 from repro_torch.core.plan import LADDER_TILE, theta_tiled_raw
 
-__all__ = ["candidate_segments", "contingency_ref", "fused_theta_ref",
+__all__ = ["candidate_segments", "contingency_ref", "fused_theta_raw_ref", "fused_theta_ref",
            "fused_theta_segments_ref", "sweep_theta_ref", "sweep_theta_segments_ref",
            "tile_segments"]
 
@@ -55,6 +55,21 @@ def contingency_ref(
     return out
 
 
+def fused_theta_raw_ref(
+    packed: torch.Tensor,  # [nc, G] int32
+    d: torch.Tensor,       # [G]    int32
+    w: torch.Tensor,       # [G]    float32 (0 for padding granules)
+    *,
+    delta: str,
+    n_bins: int,
+    n_dec: int,
+) -> torch.Tensor:
+    """Unnormalized Θ'[c]: contingency, then the tile-ordered θ' epilogue
+    (the JAX package's ``plan._theta_fused_xla_raw``)."""
+    cont = contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
+    return theta_tiled_raw(delta, cont, tile=LADDER_TILE)
+
+
 def fused_theta_ref(
     packed: torch.Tensor,  # [nc, G] int32
     d: torch.Tensor,       # [G]    int32
@@ -65,9 +80,9 @@ def fused_theta_ref(
     n_bins: int,
     n_dec: int,
 ) -> torch.Tensor:
-    """Θ(D|B∪{a})[c]: contingency, tile-ordered θ' epilogue, one scale."""
-    cont = contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
-    return measures.theta_scale(delta, theta_tiled_raw(delta, cont, tile=LADDER_TILE), n)
+    """Θ(D|B∪{a})[c]: :func:`fused_theta_raw_ref`, then the measure's one scale."""
+    return measures.theta_scale(
+        delta, fused_theta_raw_ref(packed, d, w, delta=delta, n_bins=n_bins, n_dec=n_dec), n)
 
 
 def sweep_theta_ref(

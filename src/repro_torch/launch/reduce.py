@@ -4,11 +4,20 @@
     python -m repro_torch.launch.reduce --dataset kdd99 --max-rows 5000000 --backend sweep
     python -m repro_torch.launch.reduce --dataset mushroom --device cpu
 
+    python -m repro_torch.launch.reduce --dataset mushroom --delta SCE \
+        --distributed --mesh 4,2 --collective fused --max-rows 2000 --device cpu
+
 The flags of ``repro.launch.reduce``, plus ``--device {cuda,cpu}`` (default
 ``cuda``: no card is an error, never a silent CPU run).  ``--ensemble
 MEASURES|all`` (with ``--bags N``) runs the measure grid as one stacked
 engine loop and prints ``"ensemble": [...]``, one entry a config.
-``--distributed`` is not ported yet and exits with an error.
+
+``--distributed`` runs the mesh driver (``repro_torch.core.distributed``)
+on ``prod(--mesh)`` ranks, one a mesh position, and rank 0 prints.  Under
+``torchrun`` (``WORLD_SIZE`` in the environment) this process is one rank;
+otherwise the CLI spawns the ranks itself: gloo ranks on ``--device cpu``,
+NCCL ranks on ``--device cuda``, one card a rank (a mesh larger than the
+visible cards is an error).
 
 ``--stream`` runs the dataset at its full Table-5 shape through streaming
 GrC ingestion (chunks of ``--chunk-rows``); ``--max-rows``/``--max-attrs``
@@ -18,6 +27,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 from typing import List, Optional
 
@@ -64,8 +75,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="with --ensemble: N bagged (bootstrap-reweighted) "
                          "replicas per measure, seeds 0..N-1")
     ap.add_argument("--no-grc", action="store_true")
-    ap.add_argument("--distributed", action="store_true", help="not ported yet")
-    ap.add_argument("--mesh", default="4,2", help="data,model (not ported yet)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="the mesh driver: granules over data shards, candidates "
+                         "over model shards, one rank a mesh position")
+    ap.add_argument("--mesh", default="4,2", help="data,model (distributed)")
     ap.add_argument("--collective", default="all_reduce",
                     choices=["all_reduce", "reduce_scatter", "fused"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -78,11 +91,87 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Run the CLI; prints the result and returns it as a dict."""
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.stream:
+        dropped = [name for name, off_default in [
+            ("--max-rows", args.max_rows is not None),
+            ("--max-attrs", args.max_attrs is not None),
+            ("--no-grc", args.no_grc),
+        ] if off_default]
+        if dropped:
+            ap.error(f"{', '.join(dropped)} not supported with --stream "
+                     "(streaming runs the full Table-5 shape under GrC init)")
+    if not args.distributed or args.ensemble is not None:
+        return _run(ap, args)       # the ensemble branch refuses --distributed
 
-    if args.distributed:
-        ap.error("--distributed not ported to repro_torch yet (ROADMAP.md: "
-                 "mesh driver); use python -m repro.launch.reduce")
+    # the mesh driver has no mode/shrink knobs and only the mesh-capable
+    # Θ backends — refuse rather than silently ignoring them
+    dropped = [name for name, off_default in [
+        ("--mode", args.mode != "incremental"),
+        ("--backend", args.backend not in ("segment", "sweep_xla")),
+        ("--shrink", args.shrink),
+        ("--mp-chunk", args.mp_chunk != 64),
+    ] if off_default]
+    if dropped:
+        ap.error(f"{', '.join(dropped)} not supported with --distributed")
+    shape = _mesh_shape(ap, args.mesh)
+    if "WORLD_SIZE" in os.environ:          # under torchrun: this process is one rank
+        from repro_torch.distributed.api import init_process_group
 
+        import torch.distributed as dist
+
+        dev = init_process_group(args.device)
+        try:
+            return _run(ap, args, rank_device=dev, mesh_shape=shape)
+        finally:
+            dist.destroy_process_group()
+    return _spawn_world(ap, args, argv, shape)
+
+
+def _mesh_shape(ap, text: str):
+    try:
+        shape = tuple(int(v) for v in text.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        ap.error(f"--mesh takes data,model sizes (e.g. 4,2), got {text!r}")
+    return shape
+
+
+def _spawn_world(ap, args, argv, shape) -> dict:
+    """Run this command on ``prod(shape)`` local ranks; rank 0's result."""
+    import torch
+
+    from repro_torch.distributed.api import spawn
+
+    world = shape[0] * shape[1]
+    if args.device == "cuda":
+        n_gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > n_gpus:
+            ap.error(f"--mesh {args.mesh} needs {world} ranks, one GPU each (NCCL puts "
+                     f"one rank on one card); {n_gpus} GPU(s) visible")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_reduce_") as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        spawn(_cli_rank, world, (argv, out_path), device=args.device)
+        with open(out_path) as f:
+            return json.load(f)
+
+
+def _cli_rank(device, argv, out_path: str) -> None:
+    """One spawned rank of ``--distributed``: rank 0 prints and writes its
+    result to ``out_path``."""
+    import torch.distributed as dist
+
+    ap = _parser()
+    args = ap.parse_args(argv)
+    out = _run(ap, args, rank_device=device, mesh_shape=_mesh_shape(ap, args.mesh))
+    if dist.get_rank() == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def _run(ap, args, *, rank_device=None, mesh_shape=None) -> dict:
+    """The CLI's work in this process: one reduction (or one ensemble), or
+    this rank's part of a distributed one (``mesh_shape`` set)."""
     from repro_torch.core.engine import ENSEMBLE_BACKENDS
     from repro_torch.core.reduction import (
         _resolve_engine,
@@ -93,16 +182,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from repro_torch.data import paper_dataset, scaled_paper_dataset
     from repro_torch.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if rank_device is None else rank_device)
     if args.stream:
-        dropped = [name for name, off_default in [
-            ("--max-rows", args.max_rows is not None),
-            ("--max-attrs", args.max_attrs is not None),
-            ("--no-grc", args.no_grc),
-        ] if off_default]
-        if dropped:
-            ap.error(f"{', '.join(dropped)} not supported with --stream "
-                     "(streaming runs the full Table-5 shape under GrC init)")
         source = paper_dataset(args.dataset)
         table_shape = [source.n_rows, source.n_attrs]
         x = d = None
@@ -115,6 +196,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
         ).table()
         table_shape = list(x.shape)
 
+    if mesh_shape is not None:
+        return _run_distributed(args, device, mesh_shape, x, d, source, table_shape)
+
     t0 = time.perf_counter()
     gran = resolve_granularity(x, d, source=source, grc_init=not args.no_grc,
                                chunk_rows=args.chunk_rows, device=device)
@@ -123,6 +207,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     if args.ensemble is not None:
         dropped = [name for name, off_default in [
+            ("--distributed", args.distributed),
             ("--engine", args.engine == "host"),
             ("--backend", args.backend not in ENSEMBLE_BACKENDS),
             ("--delta", args.delta != "SCE"),  # the grid IS the measure knob
@@ -186,6 +271,37 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         for k, v in out.items():
             print(f"{k:>14}: {v}")
+    return out
+
+
+def _run_distributed(args, device, mesh_shape, x, d, source, table_shape) -> dict:
+    """This rank's part of ``--distributed``; rank 0 prints."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import plar_reduce_distributed
+    from repro_torch.distributed.api import make_mesh
+
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=device)
+    r = plar_reduce_distributed(x, d, mesh, source=source, chunk_rows=args.chunk_rows,
+                                delta=args.delta, max_features=args.max_features,
+                                collective=args.collective, backend=args.backend,
+                                ladder=args.bin_ladder == "on", selector=args.selector,
+                                grc_init=not args.no_grc, engine=args.engine)
+    out = {
+        "dataset": args.dataset, "delta": args.delta,
+        "table_shape": table_shape,
+        "reduct": r.reduct, "core": r.core,
+        "theta_full": r.theta_full, "iterations": r.iterations,
+        "n_evaluations": r.n_evaluations, "elapsed_s": round(r.elapsed_s, 3),
+        "device": device.type, "backend": args.backend, "mesh": dict(mesh.shape),
+        "collective": args.collective, "theta_history": r.theta_history,
+    }
+    if dist.get_rank() == 0:
+        if args.json:
+            print(json.dumps(out, indent=2))
+        else:
+            for k, v in out.items():
+                print(f"{k:>14}: {v}")
     return out
 
 

@@ -37,6 +37,14 @@ answers equal their solo runs), a timed-out dispatch whose retry adopts the
 running call (the untimed answer, one engine run), a handle's checkpoint
 round trip, and the server streaming the shuttle table (58,000 rows) with
 the four Θ backends bit-equal on Θ_PR and a stacked window of four clients.
+
+The mesh driver on the card: the fused kernel's raw partials over four
+class-grouped parts sum, scaled once, to the unsplit Θ (the ``fused``
+schedule's identity, at kdd99 shapes), and a world of one NCCL rank (mesh
+(1, 1)) gives the solo reduction on every schedule and engine, the device
+engine capturing its body with the collectives in it; the adapter's NCCL
+reduce_scatter runs eagerly and captured, and ``engine="auto"`` takes the
+host loop where the device engine's working set does not fit the card.
 """
 import numpy as np
 import pytest
@@ -487,3 +495,142 @@ def test_server_streams_shuttle_on_card(cuda_device):
             assert r.theta_history[-1] <= f32_threshold(r.theta_full, 1e-6), delta
     for k in ("retries", "stale_served", "quarantined", "flush_failures"):
         assert summary[k] == 0, k
+
+
+# ---------------------------------------------------------------------------
+# the mesh driver on the card (one H100: a world of one NCCL rank)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+def test_fused_raw_partials_sum_to_unsplit_theta_on_card(cuda_device, delta):
+    """The mesh ``fused`` schedule's identity at kdd99 shapes (G = 131,072
+    with 24% padding, nc = 41, V = 10, n_dec = 23, K = 4,096 classes):
+    a class-grouped granule table split into 4 contiguous parts; the
+    kernel's raw partials summed, then scaled once, equal the unsplit
+    ``fused_theta`` — Θ_PR bit for bit, the others within the phase-3
+    tolerance — and the plain raw version equals the kernel's raw output."""
+    G, nc, v, m, k = 131_072, 41, 10, 23, 4_096
+    gen = torch.Generator().manual_seed(17)
+    r = torch.sort(torch.randint(0, k, (G,), generator=gen, dtype=torch.int32)).values
+    x_t = torch.randint(0, v, (nc, G), generator=gen, dtype=torch.int32)
+    d = torch.randint(0, m, (G,), generator=gen, dtype=torch.int32)
+    w = torch.randint(1, 200, (G,), generator=gen).to(torch.float32)
+    w[torch.rand((G,), generator=gen) < 0.24] = 0.0
+    packed = (r[None, :] * v + x_t).contiguous()
+    cuts = [0] + [int(torch.searchsorted(r, r[c])) for c in (G // 4, G // 2, 3 * G // 4)] + [G]
+    packed, d, w = packed.to(cuda_device), d.to(cuda_device), w.to(cuda_device)
+    n = torch.tensor(float(w.sum()), device=cuda_device)
+    kw = dict(delta=delta, n_bins=k * v, n_dec=m)
+    before = ops.launch_counts()["fused_theta"]
+    parts = [ops.fused_theta_raw(packed[:, lo:hi].contiguous(), d[lo:hi].contiguous(),
+                                 w[lo:hi].contiguous(), **kw) for lo, hi in zip(cuts, cuts[1:])]
+    split = ops.theta_scale(delta, parts[0] + parts[1] + parts[2] + parts[3], n)
+    whole = ops.fused_theta(packed, d, w, n, **kw)
+    raw = ops.fused_theta_raw(packed, d, w, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_theta"] == before + 6
+    _close(delta, split, whole)
+    _close(delta, raw, ref.fused_theta_raw_ref(packed, d, w, **kw))
+
+
+@pytest.fixture
+def nccl_world(cuda_device, tmp_path):
+    """This process as a world of one NCCL rank (FileStore rendezvous)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_process_group
+
+    dev = init_process_group("cuda", rank=0, world_size=1, store_path=str(tmp_path / "store"),
+                             timeout_s=120)
+    yield dev
+    dist.destroy_process_group()
+
+
+def test_mesh_driver_world_of_one_equals_solo_on_card(nccl_world):
+    """Mesh (1, 1) on NCCL: every schedule and engine gives the solo
+    reduction's reduct, core and Θ history (PR bit-equal, SCE within
+    rtol=1e-6); the device engine captures its body (collectives inside)
+    at its first call and replays it at the second; ``fused`` launches the
+    kernel every iteration."""
+    from repro_torch import obs
+    from repro_torch.core.distributed import plar_reduce_distributed
+    from repro_torch.distributed import make_mesh
+
+    from repro_torch.data import scaled_paper_dataset
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    x, d = scaled_paper_dataset("mushroom", max_rows=2000, max_attrs=22).table()
+    obs.enable()
+    try:
+        for delta in ("PR", "SCE"):
+            solo = plar_reduce(x, d, delta=delta, engine="host", device=nccl_world)
+            runs = [("all_reduce", "host", None), ("reduce_scatter", "host", None),
+                    ("all_reduce", "device", 1), ("reduce_scatter", "device", 1),
+                    ("all_reduce", "device", 0), ("fused", "host", None)]
+            for coll, eng, captures in runs:
+                before_launch = ops.launch_counts()["fused_theta"]
+                before = obs.get_tracer().recorded
+                r = plar_reduce_distributed(x, d, mesh, delta=delta, collective=coll, engine=eng)
+                assert (r.reduct, r.core) == (solo.reduct, solo.core), (delta, coll, eng)
+                if delta == "PR":
+                    assert r.theta_history == solo.theta_history
+                else:
+                    np.testing.assert_allclose(r.theta_history, solo.theta_history,
+                                               rtol=1e-6, atol=1e-7)
+                if coll == "fused":
+                    assert ops.launch_counts()["fused_theta"] - before_launch == r.iterations > 0
+                if captures is not None:
+                    fresh = obs.get_tracer().recorded - before
+                    span = [s for s in obs.get_tracer().records()[-fresh:]
+                            if s.name == "engine.dispatch"][-1]
+                    assert span.args["captures"] == captures, (delta, coll)
+    finally:
+        obs.disable()
+        engine.release_graphs()
+
+
+def test_mesh_reduce_scatter_on_nccl_eager_and_captured(nccl_world):
+    """The adapter's ``psum_scatter_bins`` (NCCL ``reduce_scatter_tensor``,
+    bins moved to dim 0) on a world of one rank, eagerly and inside a CUDA
+    graph: the driver's merge takes it only at two or more data shards,
+    which one card never has.  One shard keeps every bin, so the output
+    equals the input, in the ``[nc, bins, m]`` layout."""
+    from repro_torch.core.engine import _MeshColl
+    from repro_torch.distributed import make_mesh
+
+    coll = _MeshColl(make_mesh((1, 1), ("data", "model"), device="cuda"))
+    gen = torch.Generator(device=nccl_world).manual_seed(5)
+    cont = torch.randint(0, 1 << 20, (41, 4_096, 23), generator=gen, device=nccl_world,
+                         dtype=torch.int32).to(torch.float32)
+    assert torch.equal(coll.psum_scatter_bins(cont.clone()), cont)
+    static_in = cont.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        coll.psum_scatter_bins(static_in.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = coll.psum_scatter_bins(static_in)
+    for _ in range(2):
+        static_in.copy_(cont)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert static_out.shape == cont.shape
+        assert torch.equal(static_out, cont)
+        cont = cont + 1
+
+
+def test_mesh_auto_engine_fits_the_card(nccl_world):
+    """``engine="auto"`` takes the device engine where its static working
+    set fits the card (phase 12's kdd99 granularity: cap 131,072) and the
+    host loop where it does not (the 5,000,000-row x, d table)."""
+    from repro_torch.core.distributed import _resolve_engine
+    from repro_torch.distributed import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    assert _resolve_engine("auto", "all_reduce", mesh, 41, 131_072, 10, 23) == "device"
+    assert _resolve_engine("auto", "all_reduce", mesh, 41, 5_000_000, 10, 23) == "host"
+    assert _resolve_engine("auto", "fused", mesh, 41, 131_072, 10, 23) == "host"
+    assert _resolve_engine("device", "all_reduce", mesh, 41, 5_000_000, 10, 23) == "device"

@@ -207,8 +207,8 @@ def test_cli_device_cpu(capsys):
     assert out["table_shape"] == [400, 10] and out["granules"] > 0
     assert out["engine"] == "host"          # auto keeps the sweep kernel on the host loop
     with pytest.raises(SystemExit):
-        cli.main(["--dataset", "mushroom", "--device", "cpu", "--distributed"])
-    assert "not ported" in capsys.readouterr().err
+        cli.main(["--dataset", "mushroom", "--device", "cpu", "--distributed", "--shrink"])
+    assert "--shrink not supported with --distributed" in capsys.readouterr().err
 
 
 def test_cli_ensemble_matches_jax_cli(capsys, monkeypatch):
@@ -255,12 +255,21 @@ def test_port_exports_every_reference_name():
             assert hasattr(port, name), f"{port.__name__}.{name} is listed but not defined"
 
 
-def test_port_imports_no_jax_or_repro():
+def test_port_imports_no_jax_or_repro(tmp_path):
     """Importing and running the port (reductions, the reduct service with
-    one query served through a CPU ``ReductServer``, and LM serving of both
-    ported families) leaves jax and repro out of sys.modules."""
+    one query served through a CPU ``ReductServer``, LM serving of both
+    ported families, and the mesh driver on two spawned gloo ranks) leaves
+    jax and repro out of sys.modules.  ``jax`` and ``repro`` are made
+    unimportable for the process and its ranks, so a rank that imports
+    either fails the run."""
+    for name in ("jax", "repro"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} must not be imported by the port')\n")
     code = (
         "import sys, numpy as np\n"
+        "import repro_torch.distributed, repro_torch.core.distributed\n"
+        "import repro_torch.core.oracle, repro_torch.launch.mesh\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.contingency\n"
         "import repro_torch.core.engine, repro_torch.launch.time_engine\n"
         "import repro_torch.launch.reduce, repro_torch.data, repro_torch.obs\n"
@@ -295,6 +304,11 @@ def test_port_imports_no_jax_or_repro():
         "    out = eng.serve([Request(rid=i, prompt=np.arange(3 + 7 * i), max_new_tokens=3)\n"
         "                     for i in range(3)])\n"
         "    assert [len(r.output) for r in out] == [3, 3, 3]\n"
+        "from repro_torch.launch import reduce as cli\n"
+        "flags = ['--dataset', 'mushroom', '--max-rows', '300', '--max-attrs', '6',\n"
+        "         '--delta', 'PR', '--device', 'cpu']\n"
+        "dist_out = cli.main(flags + ['--distributed', '--mesh', '2,1', '--collective', 'fused'])\n"
+        "assert dist_out['reduct'] == cli.main(flags)['reduct']\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -302,7 +316,7 @@ def test_port_imports_no_jax_or_repro():
     )
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
-    env["PYTHONPATH"] = src
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), src])
     env["OMP_NUM_THREADS"] = "1"
     p = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120)
