@@ -38,7 +38,7 @@ is missing.  Phases, each printing one JSON line:
    every kernel's launch count > 0 in that phase; then a small input
    (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}`` (after phases 6-12).
+   ``{"ok": true, "device": {...}}`` (after phases 6-13).
 
 The LM serving slice adds:
 
@@ -151,21 +151,66 @@ The mesh-driver slice adds, after phase 11 (the engine's graphs released):
     engine), the phase's seconds and peak device memory.  The process
     group is destroyed at its end.
 
+The training slice adds, after phase 8:
+
+13. training on the card, through ``repro_torch.train``: (a) the kernels
+    under autograd — ``flash_attention_diff`` in bf16 at tinyllama-1.1b's
+    heads (B 1, 32 over 4 heads of 64, S = 2,048, causal; the tensor-core
+    kernel), output within phase 6's per-element bound, dq/dk/dv within
+    1e-5·max|grad| of the plain version's autograd on the same inputs (the
+    backward is that same plain recompute); ``rwkv6_diff`` in f32 at
+    rwkv6-3b's heads (B 1, H 40, T 1,024, D 64, the model's decays), o and
+    the final state within rtol = atol = 1e-4, the gradients of r, k, v, w,
+    u and s0 within 1e-4·max|grad| of the token loop's autograd; each
+    kernel launched once in its forward; times of forward + backward
+    against the plain versions'; (b) tinyllama-1.1b at full width and
+    depth, bf16, f32 moments, remat ``nothing``: ``Trainer.fit`` on
+    ``TokenStream`` batches of 4 x 2,048 in 2 microbatches, 6 steps,
+    checkpoints every 2 (JAX's layout, in ``build/``, removed after):
+    every loss and grad norm finite, every parameter leaf's second moment
+    > 0 (each leaf, wq/wk/wv/wo included, got a nonzero gradient), the
+    tensor-core flash kernel launched in the steps (counts set to 0 just
+    before, read just after); then step 2's checkpoint restored into a
+    trainer seeded otherwise and run to step 6 gives the uninterrupted
+    run's parameters and moments bit for bit (both runs under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``; the max
+    difference is printed); s/step, tokens/s, peak memory; (c) rwkv6-3b at
+    full width, depth cut to 4 layers, bf16, 3 steps of 2 x 1,024: the
+    chunked RWKV6 kernel launched, every leaf's second moment > 0 (the
+    decay parameters ``w0``/``w_lora_*`` and ``bonus_u`` included); (d)
+    both models at full width, 2 layers, f32, TF32 off, one train step of 2
+    x 128 tokens from the same parameters on the card and on the CPU: the
+    loss within 1e-5·|loss|, every gradient leaf within 1e-4·max|grad|
+    (gradients, not parameters: Adam's first step is ≈ sign(g)); for
+    rwkv6-3b within max(1e-4, 2 × the CPU's floor), the floor being how far
+    the CPU's own step moves when its recurrence runs in chunks instead of a
+    token loop (two exact f32 implementations; ~2.4e-4 at full width); (e) the
+    reduce-then-train pipeline, ``examples/pt_feature_selected_training.py``
+    on the card with its own checks (the same reduct as on the CPU, both
+    trainings' losses fall, the reduct's accuracy at least the full
+    table's), the flash kernel launched there.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
 RWKV6's prefill at B = 1, T = 2,048 (its top-level numbers) and decode at
 B = 4, T = 1 (``paths``), launches from phase 7.  The three Θ kernels'
 entries also carry ``service_launches``, their launches in phase 11, and
-``mesh_launches``, their launches in phase 12.
+``mesh_launches``, their launches in phase 12; flash and RWKV6 carry
+``train_launches``, their launches in phase 13 (b) and (c), and
+``train_ms`` / ``train_plain_ms``, forward + backward of the differentiable
+wrapper and of the plain version's autograd at the shapes of 13 (a).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import importlib.util
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -209,6 +254,14 @@ RWKV_CASES = (  # rwkv6-3b (B, T, decays): H 40, D 64
 SERVE = dict(requests=8, prompt_min=256, prompt_max=1_536, new_tokens=32,
              max_batch=4, cache_len=2_048)
 CROSS = dict(layers=2, prompts=(300, 150, 17), new_tokens=8, max_batch=2, cache_len=512)
+TRAIN_FLASH = (1, 32, 4, 2_048, 64)   # B, Hq, Hkv, S, Dh: tinyllama-1.1b heads, bf16
+TRAIN_RWKV = (1, 40, 1_024, 64)       # B, H, T, D: rwkv6-3b heads, f32
+TRAIN_FLASH_GRAD_REL = 1e-5           # the same plain backward on the same inputs
+TRAIN_RWKV_GRAD_REL = 1e-4            # the chunked form's backward vs the token loop's
+TRAIN_LM = dict(global_batch=4, seq_len=2_048, microbatches=2, steps=6, ckpt_every=2,
+                restart_from=2)       # tinyllama-1.1b, full width and depth, bf16
+TRAIN_RWKV_LM = dict(layers=4, global_batch=2, seq_len=1_024, steps=3)
+TRAIN_CROSS = dict(layers=2, global_batch=2, seq_len=128)
 KDD99 = ["--dataset", "kdd99", "--max-rows", "5000000", "--device", "cuda"]
 MAIN_RUNS = [  # (backend, delta)
     ("sweep", "PR"), ("fused", "PR"), ("pallas", "PR"), ("segment", "PR"),
@@ -1240,6 +1293,333 @@ def _first_difference(torch, cpu_model, prompts, tokens) -> dict:
     return {}
 
 
+def _grads_of(torch, fn, inputs, cotangents):
+    """(outputs, gradients of the inputs) of ``fn`` under ``cotangents``."""
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return [o.detach() for o in outs], torch.autograd.grad(outs, ins, cotangents)
+
+
+def _rel_err(got, want) -> float:
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / scale if scale > 0 else math.inf
+
+
+def _train_kernels(torch, fa, rk) -> list:
+    """Phase 13 (a): each kernel's differentiable wrapper against the plain
+    version's autograd at a full-width model's shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    b, hq, hkv, s, dh = TRAIN_FLASH
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for shape in ((b, hq, s, dh), (b, hkv, s, dh), (b, hkv, s, dh), (b, hq, s, dh)))
+    diff = lambda *a: fa.flash_attention_diff(*a, causal=True)  # noqa: E731
+    plain = lambda *a: fa.attention_ref(*a, causal=True)        # noqa: E731
+    fa.reset_launch_counts()
+    (o,), grads = _grads_of(torch, diff, (q, k, v), (g,))
+    launches = fa.launch_counts()
+    (o_ref,), grads_ref = _grads_of(torch, plain, (q, k, v), (g,))
+    torch.cuda.synchronize()
+    d = (o.float() - o_ref.float()).abs()
+    over = float((d - (FLASH_BF16_RTOL * o_ref.float().abs() + FLASH_BF16_ATOL)).max())
+    grad_err = max(_rel_err(x, y) for x, y in zip(grads, grads_ref))
+    zero = [n for n, x in zip("qkv", grads) if not float(x.float().abs().max()) > 0]
+    row = dict(kernel="flash_attention", wrapper="flash_attention_diff",
+               shape=dict(B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh, dtype="bfloat16", causal=True),
+               launches=launches, max_abs_err=float(d.max()), grad_max_rel_err=grad_err,
+               tolerance=(f"out |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}; grads "
+                          f"{TRAIN_FLASH_GRAD_REL}·max|grad|"),
+               fwd_bwd_ms=time_ms(torch, lambda: _grads_of(torch, diff, (q, k, v), (g,)), 5),
+               plain_fwd_bwd_ms=time_ms(torch, lambda: _grads_of(torch, plain, (q, k, v), (g,)), 3))
+    rows.append(row)
+    if launches != {"flash_attention": 1, "flash_attention_tc": 1}:
+        raise AssertionError(f"flash_attention_diff's forward left the tensor-core kernel: {launches}")
+    if zero or over > 0 or not grad_err <= TRAIN_FLASH_GRAD_REL:
+        raise AssertionError(f"flash_attention_diff != plain autograd: {row} (zero grads {zero})")
+    del q, k, v, g, o, o_ref, grads, grads_ref, d
+
+    b, h, t, dd = TRAIN_RWKV
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    r, k, v = rnd(b, h, t, dd) * 0.5, rnd(b, h, t, dd) * 0.5, rnd(b, h, t, dd) * 0.5
+    w = torch.exp(-torch.exp(torch.rand((b, h, t, dd), generator=gen, device=dev) * 12 - 8))
+    u, s0 = rnd(h, dd) * 0.5, rnd(b, h, dd, dd) * 0.1
+    cot = (rnd(b, h, t, dd), rnd(b, h, dd, dd))
+    ins = (r, k, v, w, u, s0)
+    rk.reset_launch_counts()
+    (o, st), grads = _grads_of(torch, rk.rwkv6_diff, ins, cot)
+    launches = rk.launch_counts()
+    (o_ref, st_ref), grads_ref = _grads_of(torch, rk.rwkv6_ref, ins, cot)
+    torch.cuda.synchronize()
+    err = max(float((o - o_ref).abs().max()), float((st - st_ref).abs().max()))
+    grad_errs = {n: _rel_err(x, y) for n, x, y in zip(("r", "k", "v", "w", "u", "s0"),
+                                                       grads, grads_ref)}
+    ok = (torch.allclose(o, o_ref, rtol=1e-4, atol=1e-4)
+          and torch.allclose(st, st_ref, rtol=1e-4, atol=1e-4)
+          and all(e <= TRAIN_RWKV_GRAD_REL for e in grad_errs.values()))
+    row = dict(kernel="rwkv6", wrapper="rwkv6_diff",
+               shape=dict(B=b, H=h, T=t, D=dd, dtype="float32"), decays="model",
+               launches=launches, max_abs_err=err, grad_max_rel_err=grad_errs,
+               tolerance=f"out rtol = atol = 1e-4; grads {TRAIN_RWKV_GRAD_REL}·max|grad|",
+               fwd_bwd_ms=time_ms(torch, lambda: _grads_of(torch, rk.rwkv6_diff, ins, cot), 3),
+               plain_fwd_bwd_ms=time_ms(torch, lambda: _grads_of(torch, rk.rwkv6_ref, ins, cot), 1))
+    rows.append(row)
+    if launches["rwkv6_chunked"] != 1 or launches["rwkv6"] != 1:
+        raise AssertionError(f"rwkv6_diff's forward did not take the chunked kernel: {launches}")
+    if not ok:
+        raise AssertionError(f"rwkv6_diff != plain autograd: {row}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves_without_gradient(state) -> list:
+    """Leaves whose AdamW second moment is 0 everywhere: no step gave them
+    a nonzero gradient."""
+    return [k for k, v in state["opt_v"].items() if not float(v.abs().max()) > 0]
+
+
+def _finite_history(hist) -> bool:
+    return all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist)
+
+
+def _train_tinyllama(torch, lm) -> dict:
+    """Phase 13 (b): full width and depth, 6 steps with checkpoints, then
+    the restart from step 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.train import CheckpointManager, TrainConfig, Trainer
+
+    cfg = get_config("tinyllama-1.1b")
+    run = TRAIN_LM
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=run["steps"],
+                     microbatches=run["microbatches"], ckpt_every=run["ckpt_every"],
+                     ckpt_keep=3, ckpt_dir=str(ckpt_dir), log_every=1)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=run["seq_len"],
+                         global_batch=run["global_batch"], seed=0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, tc, device="cuda", seed=0)
+        lm.reset()                                   # counts of the training steps only
+        t0 = time.perf_counter()
+        state, hist = trainer.fit(stream.batch, steps=run["steps"])
+        wall = time.perf_counter() - t0
+        launches = lm.counts()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = list(trainer.step_times)
+        no_grad = _leaves_without_gradient(state)
+        straight = {name: {k: t.detach().clone() for k, t in state[name].items()}
+                    for name in ("params", "opt_m", "opt_v")}
+        ckpt_steps = trainer.ckpt.all_steps()
+        del trainer, state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        resumed = Trainer(cfg, dataclasses.replace(tc, ckpt_dir=None), device="cuda", seed=1)
+        _, tree, _ = CheckpointManager(str(ckpt_dir)).restore(run["restart_from"])
+        state = resumed.state_from_tree(tree)
+        del tree
+        restore_s = time.perf_counter() - t0
+        state, _ = resumed.fit(stream.batch, steps=run["steps"], state=state,
+                               start_step=run["restart_from"])
+        restart_diff = max(float((state[name][k].detach().float() - t.float()).abs().max())
+                           for name, leaves in straight.items() for k, t in leaves.items())
+        del resumed, state, straight
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tokens = run["global_batch"] * run["seq_len"]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    out = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, dtype=cfg.param_dtype,
+               moment_dtype=tc.moment_dtype, remat=cfg.remat_policy, **run,
+               params=cfg.param_count(), losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist], step_s=step_s,
+               s_per_step=steady, tokens_per_s=tokens / steady, wall_s=wall,
+               max_memory_allocated=peak, launches=launches, leaves_without_gradient=no_grad,
+               checkpoint_steps=ckpt_steps, restore_s=restore_s,
+               restart_max_abs_diff=restart_diff,
+               restart_check="bit-equal, deterministic algorithms on (warn_only)")
+    if not _finite_history(hist) or len(hist) != run["steps"]:
+        raise AssertionError(f"tinyllama-1.1b: a loss or grad norm is not finite: {hist}")
+    if no_grad:
+        raise AssertionError(f"tinyllama-1.1b: leaves without a gradient: {no_grad}")
+    if not (launches["flash_attention_tc"] > 0
+            and launches["flash_attention_tc"] == launches["flash_attention"]):
+        raise AssertionError(f"tinyllama-1.1b: the steps left the tensor-core flash kernel: "
+                             f"{launches}")
+    if restart_diff != 0.0:
+        raise AssertionError(f"tinyllama-1.1b: the restart from step {run['restart_from']} "
+                             f"differs from the uninterrupted run by {restart_diff}")
+    return out
+
+
+def _train_rwkv(torch, lm) -> dict:
+    """Phase 13 (c): rwkv6-3b at full width, depth cut to 4 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.train import TrainConfig, Trainer
+
+    run = TRAIN_RWKV_LM
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=run["layers"])
+    tc = TrainConfig(peak_lr=3e-4, warmup_steps=1, total_steps=run["steps"], log_every=1)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=run["seq_len"],
+                         global_batch=run["global_batch"], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tc, device="cuda", seed=0)
+    lm.reset()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(stream.batch, steps=run["steps"])
+    wall = time.perf_counter() - t0
+    launches = lm.counts()
+    step_s = list(trainer.step_times)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    out = dict(arch=cfg.name, reduced=["n_layers 32 -> 4"], d_model=cfg.d_model, dtype=cfg.param_dtype, remat=cfg.remat_policy, **run,
+               losses=[h["loss"] for h in hist], grad_norms=[h["grad_norm"] for h in hist],
+               step_s=step_s, s_per_step=steady,
+               tokens_per_s=run["global_batch"] * run["seq_len"] / steady, wall_s=wall,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+               leaves_without_gradient=_leaves_without_gradient(state))
+    del trainer, state
+    torch.cuda.empty_cache()
+    if not _finite_history(hist):
+        raise AssertionError(f"rwkv6-3b: a loss or grad norm is not finite: {hist}")
+    if out["leaves_without_gradient"]:
+        raise AssertionError(f"rwkv6-3b: leaves without a gradient: {out['leaves_without_gradient']}")
+    if not launches["rwkv6_chunked"] > 0:
+        raise AssertionError(f"rwkv6-3b: the chunked RWKV6 kernel was not launched: {launches}")
+    return out
+
+
+class _Recording:
+    """The optimizer interface of a train step, keeping the step's gradients."""
+
+    def __init__(self, opt):
+        self.opt, self.lr, self.grads = opt, opt.lr, None
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().cpu() for k, g in grads.items()}
+        return self.opt.update(grads, state, params)
+
+
+def _step_grads(torch, model, batch):
+    """One train step of ``model``: (loss, its gradients on the host)."""
+    from repro_torch.train import AdamW, constant_schedule, make_train_step
+
+    rec = _Recording(AdamW(lr=constant_schedule(1e-4)))
+    params = dict(model.named_parameters())
+    st = rec.opt.init(params)
+    state = {"params": params, "opt_m": st.m, "opt_v": st.v, "opt_step": st.step}
+    _, metrics = make_train_step(model, rec)(state, batch)
+    return float(metrics["loss"]), rec.grads
+
+
+@contextlib.contextmanager
+def _rwkv6_forward(rk_ops, fn):
+    """Run ``rwkv6_diff``'s forward through ``fn`` while open (a measurement
+    aid: the step's second plain implementation of the recurrence)."""
+    saved = rk_ops.rwkv6
+    rk_ops.rwkv6 = fn
+    try:
+        yield
+    finally:
+        rk_ops.rwkv6 = saved
+
+
+def _train_cross_check(torch, rk) -> dict:
+    """Phase 13 (d): one step card vs CPU, full width, 2 layers, f32.
+
+    rwkv6-3b's gradients at full width are ill-conditioned: two exact f32
+    implementations of the step on the same CPU (the recurrence as a token
+    loop, ``rwkv6_ref``, or in 16-token chunks, ``rwkv6_chunked_ref``)
+    disagree by ~2.4e-4·max|grad| on some leaves.  That disagreement, the
+    CPU's floor, is measured here; the card is held within max(1e-4, 2 ×
+    floor) of the CPU (each side within one floor of the exact gradient).
+    tinyllama-1.1b is held within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.rwkv6 import ops as rk_ops
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for arch in ("tinyllama-1.1b", "rwkv6-3b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=TRAIN_CROSS["layers"])
+        cpu = build_model(cfg, device="cpu", dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(2))
+        card = build_model(cfg, device="cuda", dtype=torch.float32)
+        card.load_state_dict(cpu.state_dict())
+        batch = TokenStream(vocab=cfg.vocab, seq_len=TRAIN_CROSS["seq_len"],
+                            global_batch=TRAIN_CROSS["global_batch"], seed=2).batch(0)
+        loss_card, g_card = _step_grads(torch, card, batch)
+        del card
+        torch.cuda.empty_cache()
+        params0 = {k: t.clone() for k, t in cpu.state_dict().items()}
+        loss_cpu, g_cpu = _step_grads(torch, cpu, batch)
+        floor = None
+        if arch == "rwkv6-3b":
+            cpu.load_state_dict(params0)             # the step updated it in place
+            chunked = lambda *a: rk.rwkv6_chunked_ref(*a, chunk=rk.CHUNK)  # noqa: E731
+            with _rwkv6_forward(rk_ops, chunked):
+                _, g_alt = _step_grads(torch, cpu, batch)
+            floor = max(_rel_err(g_alt[k], g) for k, g in g_cpu.items())
+            del g_alt
+        del cpu, params0
+        errs = {k: _rel_err(g_card[k], g) for k, g in g_cpu.items()}
+        worst = sorted(errs, key=errs.get, reverse=True)[:3]
+        tol = 1e-4 if floor is None else max(1e-4, 2 * floor)
+        out = dict(arch=arch, layers=cfg.n_layers, d_model=cfg.d_model, dtype="float32",
+                   **{k: TRAIN_CROSS[k] for k in ("global_batch", "seq_len")},
+                   loss_cuda=loss_card, loss_cpu=loss_cpu,
+                   loss_rel_err=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                   grad_max_rel_err=errs[worst[0]], worst_leaves={k: errs[k] for k in worst},
+                   cpu_floor=floor, grad_tolerance=tol,
+                   zero_grad_leaves=[k for k, g in g_card.items() if not float(g.abs().max()) > 0])
+        emit({"phase": "train_cross_check", **out})
+        if not out["loss_rel_err"] <= 1e-5:
+            raise AssertionError(f"{arch}: train loss card {loss_card} != CPU {loss_cpu}")
+        if not errs[worst[0]] <= tol or out["zero_grad_leaves"]:
+            raise AssertionError(f"{arch}: card gradients differ from the CPU's: {out}")
+        results[arch] = out
+    return results
+
+
+def _train_pipeline(torch, lm) -> dict:
+    """Phase 13 (e): the reduce-then-train example on the card."""
+    path = Path(__file__).resolve().parent / "examples" / "pt_feature_selected_training.py"
+    spec = importlib.util.spec_from_file_location("pt_feature_selected_training", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    lm.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        out = example.main(["--device", "cuda"])
+    out = dict(out, seconds=time.perf_counter() - t0, launches=lm.counts(),
+               printed=printed.getvalue().splitlines())
+    if not out["launches"]["flash_attention"] > 0:
+        raise AssertionError(f"the pipeline's training did not launch the flash kernel: {out}")
+    return out
+
+
+def phase_training(torch, fa, rk, lm, card: str) -> dict:
+    """Phase 13: training on the card, (a)–(e)."""
+    out = {"kernels": _train_kernels(torch, fa, rk)}
+    for row in out["kernels"]:
+        emit({"phase": "train_kernel", **row, "card": card})
+    out["tinyllama-1.1b"] = _train_tinyllama(torch, lm)
+    emit({"phase": "train_tinyllama", "card": card, **out["tinyllama-1.1b"]})
+    out["rwkv6-3b"] = _train_rwkv(torch, lm)
+    emit({"phase": "train_rwkv6", "card": card, **out["rwkv6-3b"]})
+    out["cross_check"] = _train_cross_check(torch, rk)
+    out["pipeline"] = _train_pipeline(torch, lm)
+    emit({"phase": "train_pipeline", "card": card, **out["pipeline"]})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the full report here (JSON)")
@@ -1304,6 +1684,7 @@ def main() -> None:
     report["lm_kernels_vs_plain"] = phase_lm_kernels(torch, fa, rk, smi)
     report["serving"] = phase_serving(torch, lm, smi)
     report["cross_check"] = phase_cross_check(torch, smi)
+    report["training"] = phase_training(torch, fa, rk, lm, smi)
 
     top = N_BINS[-1]
     kernels = []
@@ -1329,6 +1710,7 @@ def main() -> None:
             entry["ms_at_K"] = {str(r["K"]): r["ms"] for r in rows
                                 if r["n_bins"] == top and r["delta"] == "PR"}
         kernels.append(entry)
+    train_rows = {r["kernel"]: r for r in report["training"]["kernels"]}
     flash_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "flash_attention"]
     pick = next(r for r in flash_rows
                 if r["shape"]["S"] == FLASH_CASES[1][0] and r["shape"]["Dh"] == FLASH_CASES[1][3])
@@ -1340,6 +1722,9 @@ def main() -> None:
         "ms": pick["ms"], "plain_ms": pick["plain_ms"],
         "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
         "library_ms": pick["library_ms"], "at": pick["shape"],
+        "train_launches": report["training"]["tinyllama-1.1b"]["launches"]["flash_attention_tc"],
+        "train_ms": train_rows["flash_attention"]["fwd_bwd_ms"],
+        "train_plain_ms": train_rows["flash_attention"]["plain_fwd_bwd_ms"],
     })
     rwkv_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "rwkv6"]
     rwkv_launches = report["serving"]["rwkv6-3b"]["launches"]
@@ -1356,6 +1741,9 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in rwkv_rows),
         **{k: paths["prefill"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "at": paths["prefill"]["shape"], "paths": paths,
+        "train_launches": report["training"]["rwkv6-3b"]["launches"]["rwkv6"],
+        "train_ms": train_rows["rwkv6"]["fwd_bwd_ms"],
+        "train_plain_ms": train_rows["rwkv6"]["plain_fwd_bwd_ms"],
     })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

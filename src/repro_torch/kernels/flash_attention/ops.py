@@ -16,6 +16,15 @@
 
   There is no fallback from one kernel to another or to the plain version.
 
+Training goes through :func:`flash_attention_diff`, JAX's
+``_diff_attention``: a ``torch.autograd.Function`` whose forward is
+:func:`flash_attention` (the kernel on the card, the plain version on the
+CPU) and whose backward recomputes :func:`.ref.attention_ref` on the saved
+q, k, v and returns its vector-Jacobian product.  The kernel writes into
+an ``empty_like`` buffer through ctypes, so its output carries no autograd
+graph of its own: without the Function a training step on the card would
+give q, k and v no gradient.  :func:`mha` is JAX's dispatch by name.
+
 :data:`LAUNCHES` counts kernel launches (one per launch, nowhere else), so a
 run can show that it went through the kernels: ``flash_attention`` counts
 every launch, ``flash_attention_tc`` those of the tensor-core kernel.
@@ -31,8 +40,8 @@ from .. import build
 from ..launching import on_cpu, stream
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "flash_attention", "launch_counts",
-           "reset_launch_counts", "takes_tensor_cores"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "flash_attention", "flash_attention_diff",
+           "launch_counts", "mha", "reset_launch_counts", "takes_tensor_cores"]
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's compiled head widths
@@ -130,3 +139,47 @@ def flash_attention(
     if tc:
         LAUNCHES["flash_attention_tc"] += 1
     return out
+
+
+BACKWARD_RANGE = "flash_attention_diff.backward"   # its profiler range (``profile_train``)
+
+
+class _FlashAttentionDiff(torch.autograd.Function):
+    """Kernel forward, reference-VJP backward (JAX ``_diff_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        # the tensor-core kernel takes contiguous, 16-byte aligned operands
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+            o = attention_ref(*saved, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(o, saved, g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable :func:`flash_attention`: the kernel's forward (the plain
+    version on CPU tensors), the backward of :func:`.ref.attention_ref`."""
+    return _FlashAttentionDiff.apply(q, k, v, causal, window, scale)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+        window: Optional[int] = None, scale: Optional[float] = None,
+        impl: str = "pallas") -> torch.Tensor:
+    """Multi-head attention [B, H, S, Dh] with GQA kv broadcast, by JAX's
+    implementation names: ``"pallas"`` the kernel (differentiable, through
+    :func:`flash_attention_diff`), ``"xla"`` the plain version."""
+    if impl == "pallas":
+        return flash_attention_diff(q, k, v, causal=causal, window=window, scale=scale)
+    if impl == "xla":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    raise ValueError(f"unknown attention impl: {impl}")

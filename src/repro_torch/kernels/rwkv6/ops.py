@@ -8,6 +8,16 @@
   from :data:`CHUNK` tokens on (a prefill) the chunked kernel, whose plain
   version is :func:`.ref.rwkv6_chunked_ref`.
 
+Training goes through :func:`rwkv6_diff`, JAX's ``_diff_rwkv6``: a
+``torch.autograd.Function`` whose forward is :func:`rwkv6` and whose
+backward is the vector-Jacobian product of the plain recurrence for all
+six inputs.  The kernels write into ``empty_like`` buffers through ctypes,
+so their outputs carry no autograd graph of their own.  JAX's backward
+differentiates the token loop of ``rwkv6_ref``, which keeps one ``[B, H,
+D, D]`` f32 state a token (≈1.3 GB a layer at B 2, H 40, T 1,024); the
+port's differentiates :func:`.ref.rwkv6_chunked_ref` at :data:`CHUNK`
+tokens a chunk, the same function, which keeps one state a chunk.
+
 :data:`LAUNCHES` counts kernel launches (one per launch, nowhere else):
 ``rwkv6`` every launch, ``rwkv6_decode`` and ``rwkv6_chunked`` each path's,
 so a run can show that it went through both.
@@ -22,10 +32,10 @@ import torch
 
 from .. import build
 from ..launching import on_cpu, stream
-from .ref import rwkv6_ref
+from .ref import rwkv6_chunked_ref, rwkv6_ref
 
 __all__ = ["CHUNK", "HEAD_DIMS", "LAUNCHES", "chunk_split", "column_split",
-           "launch_counts", "reset_launch_counts", "rwkv6"]
+           "launch_counts", "reset_launch_counts", "rwkv6", "rwkv6_diff"]
 
 LAUNCHES: Dict[str, int] = {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}
 HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernels' compiled head widths
@@ -124,3 +134,33 @@ def rwkv6(
     LAUNCHES["rwkv6"] += 1
     LAUNCHES[path] += 1
     return o, s_fin
+
+
+BACKWARD_RANGE = "rwkv6_diff.backward"   # its profiler range (``profile_train``)
+
+
+class _Rwkv6Diff(torch.autograd.Function):
+    """Kernel forward, plain-recurrence VJP backward (JAX ``_diff_rwkv6``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)   # an unused final state costs no backward
+        return rwkv6(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, g_o, g_s):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+            o, s_fin = rwkv6_chunked_ref(*saved, chunk=CHUNK)
+            outs, grads = zip(*[(t, g) for t, g in ((o, g_o), (s_fin, g_s)) if g is not None])
+            return torch.autograd.grad(outs, saved, grads, allow_unused=True,
+                                       materialize_grads=True)
+
+
+def rwkv6_diff(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`rwkv6` (o, final state): the kernels' forward
+    (the plain version on CPU tensors), the plain recurrence's backward for
+    r, k, v, w, u and s0."""
+    return _Rwkv6Diff.apply(r, k, v, w, u, s0)

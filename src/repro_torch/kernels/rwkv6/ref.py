@@ -69,7 +69,8 @@ def rwkv6_chunked_ref(
     w_{t−δ}, M[t, t−δ] = P_δ[t]·k_{t−δ}.  Every factor is a product of decays
     in [0, 1], so nothing overflows; a product that underflows is 0, where
     the ratio A_t / A_{s+1} would be 0/0 once A underflows (the model's
-    decays reach below 1e-30).
+    decays reach below 1e-30).  Autograd runs through it (``rwkv6_diff``'s
+    backward): no tensor that a product saved is written in place.
     """
     b, h, t, d = r.shape
     s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
@@ -84,11 +85,12 @@ def rwkv6_chunked_ref(
         a = torch.cat([ones, torch.cumprod(wc, dim=2)], dim=2)          # A_0 .. A_n
         bs = torch.cat([torch.cumprod(wc.flip(2), dim=2).flip(2)[:, :, 1:], ones], dim=2)
         m = torch.diag_embed((rc * uf * kc).sum(-1))                    # the bonus term
-        p = rc.clone()                                   # P_δ[t], for t >= δ
+        p = rc                                           # P_δ[t], for t >= δ
         for delta in range(1, n):
             m[:, :, delta:, :n - delta] += torch.diag_embed(
                 (p[:, :, delta:] * kc[:, :, :n - delta]).sum(-1))
-            p[:, :, delta:] *= wc[:, :, :n - delta]
+            # a new tensor, not an in-place product: autograd keeps each P_δ
+            p = torch.cat([p[:, :, :delta], p[:, :, delta:] * wc[:, :, :n - delta]], dim=2)
         outs.append((rc * a[:, :, :n]) @ s + m @ vc)
         s = a[:, :, n, :, None] * s + (kc * bs).transpose(-1, -2) @ vc
     o = torch.cat(outs, dim=2) if outs else torch.zeros_like(rf)

@@ -2,9 +2,9 @@
 
 :func:`build_model` materializes a :class:`CausalLM` on the target device
 (the card by default).  Ported block kinds: attention with a dense MLP, and
-RWKV6.  MoE, mamba/hybrid, encoder-decoder and frontend configs resolve
-(``repro_torch.configs``) but raise here, as do the attention options of the
-training and dry-run paths (``attn_naive``, ``flash_bwd``).
+RWKV6, with every attention option (``attn_naive``, ``flash_bwd``).  MoE,
+mamba/hybrid, encoder-decoder and frontend configs resolve
+(``repro_torch.configs``) but raise here.
 """
 from __future__ import annotations
 
@@ -34,11 +34,6 @@ def build_model(cfg: ArchConfig, *, device: DeviceLike = "cuda",
         raise NotImplementedError(f"encoder-decoder models ({cfg.name}) are {NOT_PORTED}")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.frontend} frontends ({cfg.name}) are {NOT_PORTED}")
-    for option in ("attn_naive", "flash_bwd"):
-        if getattr(cfg, option):
-            raise NotImplementedError(
-                f"attention option {option} ({cfg.name}) is not ported yet "
-                "(ROADMAP §1b 'LM training')")
     if dtype is not None:
         name = dtype_name(dtype)
         cfg = dataclasses.replace(cfg, param_dtype=name, compute_dtype=name)

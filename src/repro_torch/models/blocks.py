@@ -7,13 +7,24 @@ pattern position ``l % period``) and loops over them.  ``layer_pattern`` is
 kept so the cache layout stays the JAX one: ``{"pos{j}": {leaf: [n_periods,
 B, ...]}}``.  Block kinds ported: ``attn`` (with a dense MLP) and ``rwkv``;
 ``mamba`` and MoE raise.
+
+Training recomputes activations as JAX's ``run_stack_full`` does
+(``cfg.remat``, with ``torch.utils.checkpoint``, non-reentrant) whenever
+grad is enabled: ``remat_policy`` ``nothing`` saves a period's input only
+and recomputes the period in the backward, ``per_block`` the same a block
+at a time, ``dots`` also keeps the outputs of the plain matrix products
+(``aten.mm``/``addmm``, JAX's ``dots_with_no_batch_dims_saveable``).
+Recompute changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import attn_defs, self_attention_decode, self_attention_full
 from .layers import ParamTree, norm_def, rms_norm
@@ -103,9 +114,41 @@ class Block(ParamTree):
         return x + mlp(self["ffn"], h2, cfg), {}
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg, x):
+    """``fn(x)`` under activation checkpointing by ``cfg.remat_policy``."""
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, x, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_dots))
+    return checkpoint(fn, x, use_reentrant=False)
+
+
 def run_stack_full(blocks, x, positions, cfg, *, window=None, collect_cache: bool = False
                    ) -> Tuple[torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
-    """Every layer in order.  Returns (x, per-layer cache leaves or None)."""
+    """Every layer in order.  Returns (x, per-layer cache leaves or None).
+
+    With ``cfg.remat`` and grad enabled, each period (``per_block``: each
+    block) runs under :func:`_remat`; the cache is not collected there."""
+    if cfg.remat and torch.is_grad_enabled() and not collect_cache:
+        period = len(layer_pattern(cfg)[0])
+        groups = ([[blk] for blk in blocks] if cfg.remat_policy == "per_block"
+                  else [blocks[i:i + period] for i in range(0, len(blocks), period)])
+
+        def body(group, h):
+            for blk in group:
+                h, _ = blk.full(h, positions, window=window)
+            return h
+
+        for group in groups:
+            x = _remat(functools.partial(body, group), cfg, x)
+        return x, None
     caches = []
     for blk in blocks:
         x, c = blk.full(x, positions, window=window, collect_cache=collect_cache)

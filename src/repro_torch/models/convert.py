@@ -1,4 +1,5 @@
-"""Carry a JAX parameter tree over to the port: ``params_from_jax``.
+"""Carry parameter trees between the packages: ``params_from_jax`` and
+``params_to_jax``.
 
 The JAX package keeps each pattern position's block parameters stacked over
 periods (``params["blocks"]["pos{j}"][...][p]``); the port keeps one module
@@ -6,10 +7,16 @@ per layer (``blocks.{p·period + j}``).  Both store a weight as ``[d_in,
 d_out]`` and compute ``x @ W``, so every leaf carries over as it is.  The
 tree comes in as numpy arrays (``jax.tree.map(np.asarray, params)``); this
 module imports neither JAX nor the JAX package.
+
+:func:`params_to_jax` is the inverse, so the trainer keeps its checkpoints
+in JAX's layout (``params``, ``opt_m``, ``opt_v``: each a stacked tree) and
+each package resumes the other's.  A bf16 leaf leaves as numpy's 2-byte
+void type ``V2``, the bytes and type ``np.savez`` writes for JAX's bf16
+arrays, and comes back through ``params_from_jax`` as bf16.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -17,13 +24,17 @@ import torch
 from .blocks import layer_pattern
 from .config import ArchConfig
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax"]
+
+_BF16_BYTES = np.dtype("V2")   # how an npz holds a bf16 array
 
 
 def _tensor(a: Any) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widen, exact
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype == _BF16_BYTES:       # a bf16 leaf read back from an npz
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
@@ -51,3 +62,41 @@ def params_from_jax(cfg: ArchConfig, params_np: Dict[str, Any]) -> Dict[str, tor
             for key, leaf in stacked.items():
                 flat[f"blocks.{p * period + j}.{key}"] = np.asarray(leaf)[p]
     return {k: _tensor(v) for k, v in flat.items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_BYTES)
+    return t.numpy()
+
+
+def params_to_jax(cfg: ArchConfig, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` (or any dict keyed like it, e.g. AdamW
+    moments) as the JAX ``CausalLM`` tree: numpy leaves on the host, block
+    leaves stacked ``[n_periods, ...]`` under ``blocks/pos{j}``."""
+    pattern, n_periods = layer_pattern(cfg)
+    period = len(pattern)
+    tree: Dict[str, Any] = {}
+
+    def put(path, leaf):
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = leaf
+
+    per_layer: Dict[str, Any] = {}
+    for key, t in state.items():
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            per_layer[key] = t
+        else:
+            put(parts, _numpy(t))
+    for j in range(period):
+        keys = sorted({k.split(".", 2)[2] for k in per_layer
+                       if int(k.split(".")[1]) % period == j})
+        for key in keys:
+            stacked = np.stack([_numpy(per_layer[f"blocks.{p * period + j}.{key}"])
+                                for p in range(n_periods)])
+            put(["blocks", f"pos{j}", *key.split(".")], stacked)
+    return tree

@@ -15,20 +15,23 @@ the same in every process, and the tests carry the JAX parameters across
 with :func:`repro_torch.models.convert.params_from_jax` instead.  A leaf is
 drawn in f32 on the device and cast there to its dtype: a full-width model
 never exists as an f32 copy on the host.  Partition specs are not ported.
+
+Parameters are created frozen (``requires_grad=False``): serving needs no
+graph.  Training makes them trainable (``train.make_train_step``).
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .config import torch_dtype
 
-__all__ = ["ParamDef", "ParamTree", "add_params", "apply_rope", "embed_defs",
-           "init_param", "norm_def", "rms_norm", "rope_frequencies"]
+__all__ = ["ParamDef", "ParamTree", "add_params", "apply_rope", "cross_entropy_loss",
+           "embed_defs", "init_param", "norm_def", "rms_norm", "rope_frequencies"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +113,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,                  # [B, S, V]
+    labels: torch.Tensor,                  # [B, S]
+    mask: Optional[torch.Tensor] = None,   # [B, S], 1 where a token counts
+    *,
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean token NLL in f32 (logsumexp − gold logit, plus ``z_loss``·lse²)
+    over the masked tokens; metrics ``loss``, ``accuracy`` (argmax = label)
+    and ``tokens`` (the mask's sum, at least 1), detached."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = labels.long()
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / denom
+    with torch.no_grad():
+        acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss.detach(), "accuracy": acc, "tokens": denom.detach()}
 
 
 def embed_defs(cfg) -> Dict[str, ParamDef]:

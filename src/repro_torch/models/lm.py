@@ -2,7 +2,10 @@
 
 The port's ``repro.models.lm``.  Entry points:
 
-* ``forward(tokens)`` — logits for a full sequence.
+* ``forward(batch)`` — logits for a full sequence; ``batch`` is JAX's dict
+  (``{"tokens": [B, S], ...}``) or the token tensor itself.
+* ``loss(batch)`` — (mean token NLL, metrics) against ``batch["labels"]``,
+  over ``batch["loss_mask"]`` where given (the training objective).
 * ``prefill(tokens, cache_len)`` — full forward that also returns the
   serving cache and the lengths.
 * ``decode(cache, tokens, lengths)`` — one incremental step against the
@@ -17,14 +20,14 @@ with ``k``/``v`` ``[.., B, Hkv, cache_len, Dh]`` for attention and
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import torch
 from torch import nn
 
 from .blocks import Block, layer_pattern, run_stack_decode, run_stack_full
 from .config import ArchConfig, torch_dtype
-from .layers import add_params, embed_defs, norm_def, rms_norm
+from .layers import add_params, cross_entropy_loss, embed_defs, norm_def, rms_norm
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 
@@ -67,12 +70,18 @@ class CausalLM(nn.Module):
         return logits
 
     # ---- full-sequence path ------------------------------------------------
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, batch: Union[Mapping[str, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        tokens = batch["tokens"] if isinstance(batch, Mapping) else batch
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h, _ = run_stack_full(self.blocks, self._embed(tokens), positions, self.cfg,
                               window=self.cfg.window)
         return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
+
+    def loss(self, batch: Mapping[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return cross_entropy_loss(self.forward(batch), batch["labels"],
+                                  batch.get("loss_mask"))
 
     # ---- serving -----------------------------------------------------------
     def _cache_shapes(self, batch_size: int, cache_len: int) -> Dict[str, Dict[str, Any]]:

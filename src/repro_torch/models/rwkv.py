@@ -9,7 +9,9 @@ decay keeps its full LoRA data dependence,
 in f32 (``w0``, ``w_lora_*`` and ``bonus_u`` are f32 parameters in bf16
 configs).  The recurrence runs through the RWKV6 kernel
 (:mod:`repro_torch.kernels.rwkv6`) in every call, prefill and decode, on r,
-k, v, w cast to f32.  The token-shift state is ``[B, D]`` (the last token).
+k, v, w cast to f32; with grad enabled (training) under its differentiable
+wrapper ``rwkv6_diff`` (kernel forward, plain backward), as JAX's time-mix
+calls ``rwkv6_diff``.  The token-shift state is ``[B, D]`` (the last token).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6 import rwkv6
+from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_diff
 
 from .config import torch_dtype
 from .layers import ParamDef
@@ -99,7 +101,8 @@ def rwkv_time_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = None,
 
     if wkv_state is None:
         wkv_state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    o, s_fin = rwkv6(r, k, v, w, params["bonus_u"].contiguous(), wkv_state.contiguous())
+    scan = rwkv6_diff if torch.is_grad_enabled() else rwkv6
+    o, s_fin = scan(r, k, v, w, params["bonus_u"].contiguous(), wkv_state.contiguous())
     o = o.transpose(1, 2).reshape(b, t, d)
 
     # per-head group norm (ln_x), then gate

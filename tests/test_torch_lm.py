@@ -234,10 +234,13 @@ def test_configs_resolve_and_unported_families_raise():
                  "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(get_config(arch).reduced(), device="cpu")
-    for option in ("attn_naive", "flash_bwd"):           # training / dry-run paths
-        cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), **{option: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg, device="cpu")
+    base = build_model(get_config("tinyllama-1.1b").reduced(), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, base.cfg.vocab, (2, 11)))
+    with torch.inference_mode():
+        want = base(toks)
+        for option in ("attn_naive", "flash_bwd"):       # training / dry-run paths: built
+            cfg = dataclasses.replace(base.cfg, **{option: True})
+            _close(build_model(cfg, device="cpu")(toks), want, f"{option} forward logits")
     for arch in ("gemma-2b", "minitron-4b"):             # dense: built
         model = build_model(get_config(arch).reduced(), device="cpu")
         assert model.cfg.family == "dense"

@@ -258,7 +258,8 @@ def test_port_exports_every_reference_name():
 def test_port_imports_no_jax_or_repro(tmp_path):
     """Importing and running the port (reductions, the reduct service with
     one query served through a CPU ``ReductServer``, LM serving of both
-    ported families, and the mesh driver on two spawned gloo ranks) leaves
+    ported families, one reduced training step, and the mesh driver on two
+    spawned gloo ranks) leaves
     jax and repro out of sys.modules.  ``jax`` and ``repro`` are made
     unimportable for the process and its ranks, so a rank that imports
     either fails the run."""
@@ -284,7 +285,7 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
         "import repro_torch.launch.profile_serve, repro_torch.launch.profile_sweep\n"
-        "import repro_torch.launch.time_rwkv6\n"
+        "import repro_torch.launch.time_rwkv6, repro_torch.launch.profile_train\n"
         "import repro_torch.service, repro_torch.core.recovery, repro_torch.train.checkpoint\n"
         "import repro_torch.launch.reduce_server, asyncio\n"
         "from repro_torch.service import ReductServer\n"
@@ -304,6 +305,10 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "    out = eng.serve([Request(rid=i, prompt=np.arange(3 + 7 * i), max_new_tokens=3)\n"
         "                     for i in range(3)])\n"
         "    assert [len(r.output) for r in out] == [3, 3, 3]\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "state, hist = repro_torch.launch.train.main(['--arch', 'rwkv6-3b', '--smoke',\n"
+        "    '--steps', '1', '--global-batch', '2', '--seq-len', '8', '--device', 'cpu'])\n"
+        "assert int(state['opt_step']) == 1 and np.isfinite(hist[-1]['loss'])\n"
         "from repro_torch.launch import reduce as cli\n"
         "flags = ['--dataset', 'mushroom', '--max-rows', '300', '--max-attrs', '6',\n"
         "         '--delta', 'PR', '--device', 'cpu']\n"
