@@ -38,7 +38,7 @@ is missing.  Phases, each printing one JSON line:
    every kernel's launch count > 0 in that phase; then a small input
    (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}`` (after phases 6-13).
+   ``{"ok": true, "device": {...}}`` (after phases 6-15).
 
 The LM serving slice adds:
 
@@ -58,7 +58,11 @@ The LM serving slice adds:
    ``scaled_dot_product_attention`` call (a yardstick the port never calls);
    for RWKV6 also ``graph_ms``, the device time of a call replayed in a CUDA
    graph (a decode step's kernel is shorter than the wrapper's host work, so
-   the event time there is the host's).  Beside the bound: flash 4·Hq·Dh
+   the event time there is the host's).  The families slice adds two flash
+   rows: seamless-m4t-medium's encoder (B 4, 16 over 16 heads of 64, S =
+   1,024, ``causal=False``: every (query, key) pair visible) and
+   qwen3-moe-235b-a22b's heads (B 1, 64 over 4 heads of 128, S = 2,048,
+   causal), at the same bounds.  Beside the bound: flash 4·Hq·Dh
    operations per visible (query, key) pair over 989 TFLOP/s (bf16) against
    q, k, v, o read or written once over 3.35 TB/s; RWKV6 5·D² f32
    operations per token and head (r·S, then w ⊙ S + k·vᵀ) over 67 TFLOP/s
@@ -190,6 +194,38 @@ The training slice adds, after phase 8:
     trainings' losses fall, the reduct's accuracy at least the full
     table's), the flash kernel launched there.
 
+The families slice adds, after phase 13:
+
+14. the LM families served in bf16 at full width with seeded weights, one
+    model at a time (built, driven, freed), the launch counts set to 0
+    just before each model's run and read just after: qwen3-moe-235b-a22b
+    (128 experts top-8; 94 → 4 layers) through ``ServingEngine.serve`` on
+    phase 7's traffic; jamba-1.5-large-398b (one period, 72 → 8 layers: 7
+    Mamba + 1 attention, MoE every other layer; experts 16 → 8, top-2
+    kept, since one period at 16 experts is 90.5 GB of bf16 weights) on 4
+    requests of 256–1,024 prompt tokens, 16 new, ``max_batch`` 4,
+    ``cache_len`` 2,048; llava-next-34b (60 → 4 layers) by ``prefill`` on
+    2 x (2,880 + 64) tokens with ``frontend_feats`` [2, 2,880, 1,152],
+    ``cache_len`` 3,072, then 32 greedy ``decode`` steps; seamless-m4t-medium
+    (12 + 12 layers, not cut) by ``EncDecLM.prefill`` on frames [4, 1,024,
+    160], then 32 greedy steps, ``cache_len`` 64.  Every request ends with
+    its budget, no logit is NaN, every model launched flash and every bf16
+    prefill took the tensor-core kernel, seamless's launches are its 12
+    encoder layers' and all non-causal, jamba's 7 Mamba layers ran on the
+    card once a prefill and a step, and parameters and cache leaves lie on
+    the card.  Prints init s, prefill ms, decode-step ms, tokens/s, peak
+    memory, launches and each cut (``reduced``);
+15. the families on the card against the CPU, f32, TF32 off, from the
+    same parameters: qwen3-moe at full width, 1 layer, served (prompts of
+    300, 150 and 17 tokens, 8 new); seamless-m4t-medium at full size
+    (frames [2, 300, 160], 8 greedy steps); llava-next-34b at full width, 1
+    layer (2,880 + 64 tokens with ``frontend_feats``, 8 greedy steps);
+    jamba's first block at full width as one ``Block`` (Mamba with a dense
+    MLP; prefill of 1,024 tokens, then 4 decode steps).  Tokens equal, and
+    each of logits, cross K, block outputs and states within
+    1e-4·max|CPU|; where a token differs the CPU's top-2 gap is printed,
+    and for MoE whether the router's top-k differed.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
@@ -200,12 +236,15 @@ entries also carry ``service_launches``, their launches in phase 11, and
 ``train_launches``, their launches in phase 13 (b) and (c), and
 ``train_ms`` / ``train_plain_ms``, forward + backward of the differentiable
 wrapper and of the plain version's autograd at the shapes of 13 (a).
+Flash also carries ``families_launches``, its launches by model in phase
+14, and ``families_rows``, phase 6's two rows of the families slice.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -241,10 +280,13 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_tc.cu",
     "rwkv6": "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
 }
-FLASH_CASES = (  # (S, Hq, Hkv, Dh), B 1, causal
-    (1_024, 32, 4, 64), (2_048, 32, 4, 64),    # tinyllama-1.1b prefill
-    (2_048, 32, 8, 128),                       # mistral-nemo-12b heads
+FLASH_CASES = (  # (B, S, Hq, Hkv, Dh, causal)
+    (1, 1_024, 32, 4, 64, True), (1, 2_048, 32, 4, 64, True),   # tinyllama-1.1b prefill
+    (1, 2_048, 32, 8, 128, True),                               # mistral-nemo-12b heads
+    (4, 1_024, 16, 16, 64, False),             # seamless-m4t-medium's encoder, non-causal
+    (1, 2_048, 64, 4, 128, True),              # qwen3-moe-235b-a22b's heads: GQA group 16
 )
+FLASH_PICK = (2_048, 64)           # the kernels line's top-level flash row: S, Dh (tinyllama)
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 2e-3   # per element: one bf16 rounding
 FLASH_F32_TOL = 2e-5
 RWKV_CASES = (  # rwkv6-3b (B, T, decays): H 40, D 64
@@ -262,6 +304,16 @@ TRAIN_LM = dict(global_batch=4, seq_len=2_048, microbatches=2, steps=6, ckpt_eve
                 restart_from=2)       # tinyllama-1.1b, full width and depth, bf16
 TRAIN_RWKV_LM = dict(layers=4, global_batch=2, seq_len=1_024, steps=3)
 TRAIN_CROSS = dict(layers=2, global_batch=2, seq_len=128)
+FAMILIES = {  # phase 14: bf16 on the card at full width; depth and other cuts in "reduced"
+    "qwen3-moe-235b-a22b": dict(layers=4, serve=dict(SERVE)),
+    "jamba-1.5-large-398b": dict(layers=8, experts=8, serve=dict(
+        requests=4, prompt_min=256, prompt_max=1_024, new_tokens=16, max_batch=4,
+        cache_len=2_048)),
+    "llava-next-34b": dict(layers=4, batch=2, text_tokens=64, new_tokens=32, cache_len=3_072),
+    "seamless-m4t-medium": dict(batch=4, frames=1_024, new_tokens=32, cache_len=64),
+}
+FAMILY_CROSS = dict(prompts=(300, 150, 17), new_tokens=8, max_batch=2, cache_len=512,
+                    frames=300, text_tokens=64, block_tokens=1_024, block_steps=4)
 KDD99 = ["--dataset", "kdd99", "--max-rows", "5000000", "--device", "cuda"]
 MAIN_RUNS = [  # (backend, delta)
     ("sweep", "PR"), ("fused", "PR"), ("pallas", "PR"), ("segment", "PR"),
@@ -1057,17 +1109,16 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False    # the f32 plain versions
     gen = torch.Generator(device=dev).manual_seed(12)
     rows = []
-    for s, hq, hkv, dh in FLASH_CASES:
-        b = 1
+    for b, s, hq, hkv, dh, causal in FLASH_CASES:
         q = torch.randn((b, hq, s, dh), generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((b, hkv, s, dh), generator=gen, device=dev).to(torch.bfloat16)
         fa.reset_launch_counts()
-        got = fa.flash_attention(q, k, v, causal=True)
+        got = fa.flash_attention(q, k, v, causal=causal)
         if fa.launch_counts() != {"flash_attention": 1, "flash_attention_tc": 1}:
             raise AssertionError(f"bf16 flash at Dh {dh} did not take the tensor-core kernel: "
                                  f"{fa.launch_counts()}")
-        want = fa.attention_ref(q, k, v, causal=True)
+        want = fa.attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
@@ -1079,27 +1130,28 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
                                  f"{FLASH_BF16_ATOL}")
         # f32: the same inputs through the f32 CUDA-core kernel
         qf, kf, vf = q.float(), k.float(), v.float()
-        got32 = fa.flash_attention(qf, kf, vf, causal=True)
-        want32 = fa.attention_ref(qf, kf, vf, causal=True)
+        got32 = fa.flash_attention(qf, kf, vf, causal=causal)
+        want32 = fa.attention_ref(qf, kf, vf, causal=causal)
         err32 = float((got32 - want32).abs().max())
         if not torch.allclose(got32, want32, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL):
             raise AssertionError(f"flash_attention != plain at S={s}, Dh {dh} (f32): max err {err32}")
         del got32, want32, diff
-        pairs = b * s * (s + 1) // 2                       # visible (query, key) pairs
+        pairs = b * (s * (s + 1) // 2 if causal else s * s)   # visible (query, key) pairs
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
         b_ms, b_by = bound(nbytes, 4 * hq * dh * pairs, PEAK_BF16_OPS_PER_S)
         rows.append(dict(
             kernel="flash_attention", shape=dict(B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh,
-                                                 dtype="bfloat16", causal=True),
+                                                 dtype="bfloat16", causal=causal),
             path="tensor cores (flash_attention_tc.cu)",
             max_abs_err=err, f32_max_abs_err=err32,
             tolerance=(f"bf16 |d| <= {FLASH_BF16_RTOL}·|plain| + {FLASH_BF16_ATOL}; "
                        f"f32 rtol = atol = {FLASH_F32_TOL}"),
-            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), 20),
-            f32_kernel_ms=time_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=True), 5),
-            plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v, causal=True), 5),
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), 20),
+            f32_kernel_ms=time_ms(torch, lambda: fa.flash_attention(qf, kf, vf, causal=causal),
+                                  5),
+            plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v, causal=causal), 5),
             library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 20),
+                q, k, v, is_causal=causal, enable_gqa=True), 20),
             bound_ms=b_ms, bound_by=b_by))
         del q, k, v, qf, kf, vf, got, want
     for b, t, decays in RWKV_CASES:
@@ -1198,12 +1250,20 @@ def phase_serving(torch, lm, card: str) -> dict:
     return results
 
 
+def _leaf_devices(tree) -> set:
+    """The device types of every tensor in a nested dict (a cache)."""
+    if isinstance(tree, dict):
+        return set().union(*(_leaf_devices(v) for v in tree.values()))
+    return {tree.device.type}
+
+
 @contextlib.contextmanager
-def _watch_logits(model):
+def _watch_logits(model, devices: set = None):
     """While open, ``model.prefill`` / ``decode`` append whether all their
-    logits are finite (a device flag: no extra sync while serving).  On exit
-    the class's methods come back, which also breaks the wrapper's reference
-    to the model, so ``del model`` frees its weights."""
+    logits are finite (a device flag: no extra sync while serving), and add
+    the device types of their caches' leaves to ``devices`` where given.  On
+    exit the class's methods come back, which also breaks the wrapper's
+    reference to the model, so ``del model`` frees its weights."""
     flags = []
 
     def watch(name):
@@ -1212,6 +1272,8 @@ def _watch_logits(model):
         def wrapped(*args, **kwargs):
             out = fn(*args, **kwargs)
             flags.append(out[0].isfinite().all())
+            if devices is not None:
+                devices.update(_leaf_devices(out[1]))
             return out
         setattr(model, name, wrapped)
 
@@ -1620,6 +1682,398 @@ def phase_training(torch, fa, rk, lm, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _flash_by_mask(fa):
+    """While open, the flash launches of the models' attention (through
+    ``flash_attention_diff``) by mask: ``{"causal": n, "non_causal": n}``."""
+    from repro_torch.models import attention
+    inner = attention.flash_attention_diff
+    seen = {"causal": 0, "non_causal": 0}
+
+    def wrapped(q, k, v, *, causal=True, **kw):
+        before = fa.launch_counts()["flash_attention"]
+        out = inner(q, k, v, causal=causal, **kw)
+        seen["causal" if causal else "non_causal"] += fa.launch_counts()["flash_attention"] - before
+        return out
+    attention.flash_attention_diff = wrapped
+    try:
+        yield seen
+    finally:
+        attention.flash_attention_diff = inner
+
+
+@contextlib.contextmanager
+def _mamba_calls():
+    """While open, the Mamba layers' calls (``models.blocks.mamba``) by where
+    they ran: ``{"cuda": n, "other": n}`` (input and every parameter on the
+    card, or not)."""
+    from repro_torch.models import blocks
+    inner = blocks.mamba
+    seen = {"cuda": 0, "other": 0}
+
+    def wrapped(params, x, cfg, **kw):
+        on_card = x.is_cuda and all(p.is_cuda for p in params.parameters())
+        seen["cuda" if on_card else "other"] += 1
+        return inner(params, x, cfg, **kw)
+    blocks.mamba = wrapped
+    try:
+        yield seen
+    finally:
+        blocks.mamba = inner
+
+
+def _family_cfg(arch: str):
+    """The phase-14 config of ``arch``: full width, depth (and jamba's expert
+    count) cut as FAMILIES says, and the cuts listed."""
+    from repro_torch.configs import get_config
+    cfg, spec, reduced = get_config(arch), FAMILIES[arch], []
+    if "layers" in spec:
+        reduced.append(f"layers {cfg.n_layers} -> {spec['layers']}")
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    if "experts" in spec:
+        reduced.append(f"experts {cfg.n_experts} -> {spec['experts']} (top-{cfg.top_k} kept)")
+        cfg = dataclasses.replace(cfg, n_experts=spec["experts"])
+    return cfg, reduced
+
+
+def _greedy(torch, model, cache, lengths, first, steps: int, finite: list,
+            keep_logits: bool = False):
+    """``steps`` greedy decode steps from the tokens ``first`` [B, 1]; returns
+    (tokens [B, steps], each step's host seconds, each step's last-position
+    logits [B, V] on the host with ``keep_logits``, else None)."""
+    tok, toks, step_s, kept = first, [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache, lengths = model.decode(cache, tok, lengths)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t0)
+        finite.append(logits.isfinite().all())
+        if keep_logits:
+            kept.append(logits[:, -1].float().cpu())
+    return torch.cat(toks, dim=1), step_s, (kept if keep_logits else None)
+
+
+def _greedy_difference(torch, got: dict) -> dict:
+    """Where the card's greedy tokens first leave the CPU's, and the CPU's
+    top-2 logit gap at that step; ``got[device] = (tokens [B, n], each
+    step's logits [B, V])``."""
+    diff = (got["cuda"][0] != got["cpu"][0]).nonzero()
+    row, step = (int(v) for v in diff[0])
+    top = torch.topk(got["cpu"][1][step][row], 2).values
+    return dict(row=row, step=step, cuda=int(got["cuda"][0][row, step]),
+                cpu=int(got["cpu"][0][row, step]), cpu_top2_gap=float(top[0] - top[1]))
+
+
+def _family_run(torch, arch: str, cfg, model, rng) -> dict:
+    """Drive one family's main path; the traffic is FAMILIES[arch]'s."""
+    from repro_torch.serving import Request, ServingEngine
+
+    spec, dev = FAMILIES[arch], torch.device("cuda")
+    if "serve" in spec:                                   # ServingEngine.serve, as phase 7
+        sv = spec["serve"]
+        lens = rng.integers(sv["prompt_min"], sv["prompt_max"] + 1, sv["requests"])
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(n)),
+                        max_new_tokens=sv["new_tokens"]) for i, n in enumerate(lens)]
+        engine = ServingEngine(cfg, model, max_batch=sv["max_batch"], cache_len=sv["cache_len"],
+                               device="cuda")
+        devices = set()
+        with _watch_logits(model, devices) as finite:
+            t0 = time.perf_counter()
+            done = engine.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for r in done:
+            if r.output is None or len(r.output) != sv["new_tokens"]:
+                raise AssertionError(f"{arch}: request {r.rid} ended with {r.output}")
+        return dict(traffic=f"ServingEngine.serve: {sv}", prompt_lens=[int(n) for n in lens],
+                    new_tokens=sum(len(r.output) for r in done), wall_s=wall,
+                    prefill_s=list(engine.prefill_s), decode_step_s=list(engine.decode_step_s),
+                    cache_devices=sorted(devices), finite=finite)
+    finite = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        if cfg.is_encdec:                                 # EncDecLM.prefill on frames
+            frames = torch.randn((spec["batch"], spec["frames"], cfg.frontend_dim),
+                                 generator=torch.Generator(device=dev).manual_seed(3),
+                                 device=dev)
+            cache, lengths = model.prefill({"frames": frames}, spec["cache_len"])
+            first = torch.zeros((spec["batch"], 1), dtype=torch.long, device=dev)
+            traffic = (f"EncDecLM.prefill on frames {list(frames.shape)}, cache_len "
+                       f"{spec['cache_len']}, then {spec['new_tokens']} greedy decode steps")
+        else:                                             # prefill with the frontend's features
+            p = cfg.frontend_tokens
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (spec["batch"],
+                                                               p + spec["text_tokens"])),
+                                   device=dev)
+            feats = torch.randn((spec["batch"], p, cfg.frontend_dim), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(3))
+            logits, cache, lengths = model.prefill({"tokens": toks, "frontend_feats": feats},
+                                                   spec["cache_len"])
+            finite.append(logits.isfinite().all())
+            first = logits[:, -1].argmax(-1, keepdim=True)
+            traffic = (f"prefill on tokens {list(toks.shape)} + frontend_feats "
+                       f"{list(feats.shape)}, cache_len {spec['cache_len']}, then "
+                       f"{spec['new_tokens']} greedy decode steps")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out, step_s, _ = _greedy(torch, model, cache, lengths, first, spec["new_tokens"],
+                                 finite)
+    if out.shape != (spec["batch"], spec["new_tokens"]):
+        raise AssertionError(f"{arch}: decode gave {tuple(out.shape)} tokens")
+    return dict(traffic=traffic, new_tokens=out.numel(), wall_s=prefill_s + sum(step_s),
+                prefill_s=[prefill_s], decode_step_s=step_s,
+                cache_devices=sorted(_leaf_devices(cache)), finite=finite)
+
+
+def phase_families(torch, fa, lm, card: str) -> dict:
+    """Phase 14: MoE, the Mamba hybrid, the VLM and the enc-dec, served in
+    bf16 at full width on the card, one after the other."""
+    from repro_torch.models import build_model
+
+    results = {}
+    for arch in FAMILIES:
+        cfg, reduced = _family_cfg(arch)
+        allocated_before = torch.cuda.memory_allocated()   # the previous model is gone
+        t0 = time.perf_counter()
+        model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if any(p.device.type != "cuda" for p in model.parameters()):
+            raise AssertionError(f"{arch}: a parameter is not on the card")
+        torch.cuda.reset_peak_memory_stats()
+        with _flash_by_mask(fa) as by_mask, _mamba_calls() as mamba_calls:
+            lm.reset()                                    # counts of this model's run only
+            run = _family_run(torch, arch, cfg, model, np.random.default_rng(0))
+            launches = lm.counts()
+        finite = run.pop("finite")
+        if run["cache_devices"] != ["cuda"]:
+            raise AssertionError(f"{arch}: cache leaves on {run['cache_devices']}")
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"{arch}: a prefill or decode step gave a non-finite logit")
+        if launches["flash_attention"] <= 0 or (launches["flash_attention_tc"]
+                                                != launches["flash_attention"]):
+            raise AssertionError(f"{arch}: the bf16 prefills did not all take the tensor-core "
+                                 f"flash kernel: {launches}")
+        if cfg.is_encdec and by_mask != {"causal": 0, "non_causal": cfg.enc_layers}:
+            raise AssertionError(f"{arch}: the encoder's flash launches were {by_mask}, not "
+                                 f"{cfg.enc_layers} non-causal")
+        n_mamba = sum(k == "mamba" for k in cfg.block_kinds())
+        prefills, steps = len(run["prefill_s"]), len(run["decode_step_s"])
+        if n_mamba and mamba_calls != {"cuda": n_mamba * (prefills + steps), "other": 0}:
+            raise AssertionError(f"{arch}: {n_mamba} Mamba layers over {prefills} prefills and "
+                                 f"{steps} steps ran {mamba_calls}")
+        out = dict(
+            arch=arch, d_model=cfg.d_model, layers=cfg.n_layers, reduced=reduced,
+            dtype=cfg.param_dtype, params=sum(p.numel() for p in model.parameters()),
+            param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+            init_s=init_s, allocated_before_build=allocated_before, **run,
+            prefill_ms=[x * 1e3 for x in run["prefill_s"]],
+            prefill_ms_mean=1e3 * sum(run["prefill_s"]) / prefills,
+            decode_step_ms_mean=1e3 * sum(run["decode_step_s"]) / steps,
+            tokens_per_s=run["new_tokens"] / run["wall_s"], logit_checks=len(finite),
+            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+            flash_by_mask=by_mask, mamba_calls=mamba_calls if n_mamba else None)
+        for key in ("prefill_s", "decode_step_s"):
+            del out[key]
+        emit({"phase": "families", "card": card, **out})
+        results[arch] = out
+        del model, finite, run
+        torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def _router_ids():
+    """While open, every MoE layer's top-k expert ids, in call order."""
+    from repro_torch.models import moe
+    inner, seen = moe.route, []
+
+    def wrapped(*args, **kw):
+        gates, ids = inner(*args, **kw)
+        seen.append(ids.cpu())
+        return gates, ids
+    moe.route = wrapped
+    try:
+        yield seen
+    finally:
+        moe.route = inner
+
+
+def _cross_pair(torch, cfg, seed: int):
+    """The same f32 parameters on the CPU and on the card."""
+    from repro_torch.models import build_model
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(seed))
+    card = build_model(cfg, device="cuda", dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _err(got, want) -> list:
+    """[max |got - want|, max |want|] on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return [float((got - want).abs().max()), float(want.abs().max())]
+
+
+def _cross_moe(torch, arch: str) -> dict:
+    """qwen3-moe, full width, 1 layer: served on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    cpu, card = _cross_pair(torch, cfg, 4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in FAMILY_CROSS["prompts"]]
+    tokens, logits = {}, {}
+    for name, model, dev in (("cuda", card, "cuda"), ("cpu", cpu, "cpu")):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=FAMILY_CROSS["new_tokens"])
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(cfg, model, max_batch=FAMILY_CROSS["max_batch"],
+                            cache_len=FAMILY_CROSS["cache_len"], device=dev)
+        tokens[name] = [r.output for r in eng.serve(reqs)]
+        with torch.inference_mode():
+            logits[name], _, _ = model.prefill(torch.as_tensor(prompts[0][None], device=dev),
+                                               FAMILY_CROSS["cache_len"])
+    out = dict(arch=arch, reduced=[f"layers {get_config(arch).n_layers} -> 1"],
+               traffic=f"ServingEngine.serve, prompts {list(FAMILY_CROSS['prompts'])}, "
+                       f"{FAMILY_CROSS['new_tokens']} new tokens",
+               tokens_equal=tokens["cuda"] == tokens["cpu"],
+               checks={"prefill logits of prompt 0": _err(logits["cuda"], logits["cpu"])})
+    if not out["tokens_equal"]:
+        diff = _first_difference(torch, cpu, prompts, tokens)
+        seq = np.concatenate([prompts[diff["request"]],
+                              np.asarray(tokens["cpu"][diff["request"]][:diff["step"]])])
+        ids = {}
+        for name, model, dev in (("cuda", card, "cuda"), ("cpu", cpu, "cpu")):
+            with torch.inference_mode(), _router_ids() as seen:
+                model(torch.as_tensor(seq[None], device=dev))
+            ids[name] = seen
+        diff["router_topk_differs"] = any(not torch.equal(a, b)
+                                          for a, b in zip(ids["cuda"], ids["cpu"]))
+        out["first_difference"] = diff
+    return out
+
+
+def _cross_frontend(torch, arch: str) -> dict:
+    """llava-next, full width, 1 layer: a prefill with frontend features,
+    then greedy decode steps, on both devices."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    cpu, card = _cross_pair(torch, cfg, 5)
+    rng = np.random.default_rng(5)
+    p, new = cfg.frontend_tokens, FAMILY_CROSS["new_tokens"]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, p + FAMILY_CROSS["text_tokens"])))
+    feats = torch.as_tensor(rng.standard_normal((1, p, cfg.frontend_dim)).astype(np.float32))
+    got, prefill = {}, {}
+    for name, model, dev in (("cuda", card, "cuda"), ("cpu", cpu, "cpu")):
+        with torch.inference_mode():
+            lg, cache, lengths = model.prefill(
+                {"tokens": toks.to(dev), "frontend_feats": feats.to(dev)}, toks.shape[1] + new)
+            first = lg[:, -1].argmax(-1, keepdim=True)
+            out, _, logits = _greedy(torch, model, cache, lengths, first, new - 1, [],
+                                     keep_logits=True)
+        # the first token comes from the prefill's logits, the rest from the steps'
+        got[name] = (torch.cat([first.cpu(), out], dim=1), [lg[:, -1].float().cpu()] + logits)
+        prefill[name] = lg
+    out = dict(arch=arch, reduced=[f"layers {get_config(arch).n_layers} -> 1"],
+               traffic=f"prefill on tokens {list(toks.shape)} + frontend_feats "
+                       f"{list(feats.shape)}, then {new - 1} greedy decode steps",
+               tokens_equal=torch.equal(got["cuda"][0], got["cpu"][0]),
+               checks={"prefill logits": _err(prefill["cuda"], prefill["cpu"])})
+    if not out["tokens_equal"]:
+        out["first_difference"] = _greedy_difference(torch, got)
+    return out
+
+
+def _cross_encdec(torch, arch: str) -> dict:
+    """seamless-m4t-medium at full size: encode frames, greedy decode."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    cpu, card = _cross_pair(torch, cfg, 6)
+    frames = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (2, FAMILY_CROSS["frames"], cfg.frontend_dim)).astype(np.float32))
+    new, got, cross_k = FAMILY_CROSS["new_tokens"], {}, {}
+    for name, model, dev in (("cuda", card, "cuda"), ("cpu", cpu, "cpu")):
+        with torch.inference_mode():
+            cache, lengths = model.prefill({"frames": frames.to(dev)}, new)
+            cross_k[name] = cache["cross_k"].clone()
+            first = torch.zeros((2, 1), dtype=torch.long, device=dev)
+            toks, _, logits = _greedy(torch, model, cache, lengths, first, new, [],
+                                      keep_logits=True)
+        got[name] = (toks, logits)
+    out = dict(arch=arch, reduced=[], traffic=f"EncDecLM.prefill on frames "
+                                              f"{list(frames.shape)}, then {new} greedy steps",
+               tokens_equal=torch.equal(got["cuda"][0], got["cpu"][0]),
+               checks={"cross_k": _err(cross_k["cuda"], cross_k["cpu"]),
+                       "first decode step's logits": _err(got["cuda"][1][0], got["cpu"][1][0])})
+    if not out["tokens_equal"]:
+        out["first_difference"] = _greedy_difference(torch, got)
+    return out
+
+
+def _cross_mamba_block(torch, arch: str) -> dict:
+    """jamba's first block at full width (Mamba + dense MLP) as one Block:
+    a prefill, then decode steps from its state, on both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import Block, layer_pattern
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32", compute_dtype="float32")
+    kind, is_moe = layer_pattern(cfg)[0][0]
+    if (kind, is_moe) != ("mamba", False):
+        raise AssertionError(f"{arch}: pattern position 0 is {kind}, MoE {is_moe}")
+    cpu = Block(cfg, kind, is_moe, device=torch.device("cpu"), seed=7, prefix="/blocks/pos0/0")
+    card = Block(cfg, kind, is_moe, device=torch.device("cuda"), seed=0, prefix="/blocks/pos0/0")
+    card.load_state_dict(cpu.state_dict())
+    n, steps = FAMILY_CROSS["block_tokens"], FAMILY_CROSS["block_steps"]
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (1, n + steps, cfg.d_model)).astype(np.float32))
+    got = {}
+    for name, blk, dev in (("cuda", card, "cuda"), ("cpu", cpu, "cpu")):
+        xd = x.to(dev)
+        with torch.inference_mode():
+            y, cache = blk.full(xd[:, :n], torch.arange(n, device=dev)[None],
+                                window=cfg.window, collect_cache=True)
+            ys = [y]
+            for i in range(n, n + steps):
+                y_i, cache = blk.decode(xd[:, i:i + 1], cache, None, window=cfg.window)
+                ys.append(y_i)
+        got[name] = {"block outputs (prefill and decode steps)": torch.cat(ys, dim=1),
+                     "conv state": cache["conv"], "ssm state": cache["ssm"]}
+    return dict(arch=arch, block="pattern position 0: mamba + dense MLP",
+                reduced=["one block of 72"], traffic=f"Block.full on {n} tokens, then "
+                                                      f"{steps} Block.decode steps",
+                tokens_equal=True,
+                checks={k: _err(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]})
+
+
+def phase_families_cross(torch, card: str) -> dict:
+    """Phase 15: the new families on the card against the CPU, f32, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    results = {}
+    for arch, fn in (("qwen3-moe-235b-a22b", _cross_moe), ("seamless-m4t-medium", _cross_encdec),
+                     ("llava-next-34b", _cross_frontend),
+                     ("jamba-1.5-large-398b", _cross_mamba_block)):
+        t0 = time.perf_counter()
+        out = fn(torch, arch)
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "families_cross", "card": card, **out})
+        if not out["tokens_equal"]:
+            raise AssertionError(f"{arch}: card tokens != CPU tokens: {out['first_difference']}")
+        bad = {k: v for k, v in out["checks"].items() if not v[0] <= 1e-4 * v[1]}
+        if bad:
+            raise AssertionError(f"{arch}: card and CPU differ past 1e-4·max|CPU| ([err, max]): "
+                                 f"{bad}")
+        results[arch] = out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the full report here (JSON)")
@@ -1685,6 +2139,8 @@ def main() -> None:
     report["serving"] = phase_serving(torch, lm, smi)
     report["cross_check"] = phase_cross_check(torch, smi)
     report["training"] = phase_training(torch, fa, rk, lm, smi)
+    report["families"] = phase_families(torch, fa, lm, smi)
+    report["families_cross"] = phase_families_cross(torch, smi)
 
     top = N_BINS[-1]
     kernels = []
@@ -1713,7 +2169,7 @@ def main() -> None:
     train_rows = {r["kernel"]: r for r in report["training"]["kernels"]}
     flash_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "flash_attention"]
     pick = next(r for r in flash_rows
-                if r["shape"]["S"] == FLASH_CASES[1][0] and r["shape"]["Dh"] == FLASH_CASES[1][3])
+                if (r["shape"]["S"], r["shape"]["Dh"]) == FLASH_PICK and r["shape"]["causal"])
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
         "replaces": REPLACES["flash_attention"],
@@ -1723,6 +2179,11 @@ def main() -> None:
         "bound_ms": pick["bound_ms"], "bound_by": pick["bound_by"],
         "library_ms": pick["library_ms"], "at": pick["shape"],
         "train_launches": report["training"]["tinyllama-1.1b"]["launches"]["flash_attention_tc"],
+        "families_launches": {a: r["launches"]["flash_attention"]
+                              for a, r in report["families"].items()},
+        "families_rows": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}
+                          for r in flash_rows if r["shape"]["Hq"] in (16, 64)],
         "train_ms": train_rows["flash_attention"]["fwd_bwd_ms"],
         "train_plain_ms": train_rows["flash_attention"]["plain_fwd_bwd_ms"],
     })

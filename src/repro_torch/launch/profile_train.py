@@ -29,21 +29,12 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import BACKWARD_RANGE as FLASH_BWD
 from repro_torch.kernels.rwkv6.ops import BACKWARD_RANGE as RWKV6_BWD
-from .profile_serve import _busy_us, _kernel_intervals
+from .profile_serve import _busy_us, _kernel_intervals, _range_ms
 
 RUNS = {  # arch: (layers or None for full depth, global batch, seq len, microbatches)
     "tinyllama-1.1b": (None, 4, 2_048, 2),
     "rwkv6-3b": (4, 2, 1_024, 1),
 }
-
-
-def _range_ms(prof, name: str) -> Optional[Dict[str, float]]:
-    """Device time of the kernels launched inside the profiler range
-    ``name``, and the host time spent inside it."""
-    for e in prof.key_averages():
-        if e.key == name:
-            return {"device_ms": e.device_time_total / 1e3, "host_ms": e.cpu_time_total / 1e3}
-    return None
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

@@ -1,45 +1,48 @@
-"""Model substrate of the port: configs, layers, and the decoder-only family.
+"""Model substrate of the port: configs, layers, and the two model families.
 
-:func:`build_model` materializes a :class:`CausalLM` on the target device
-(the card by default).  Ported block kinds: attention with a dense MLP, and
-RWKV6, with every attention option (``attn_naive``, ``flash_bwd``).  MoE,
-mamba/hybrid, encoder-decoder and frontend configs resolve
-(``repro_torch.configs``) but raise here.
+:func:`build_model` materializes a :class:`CausalLM` (decoder-only: dense,
+MoE, the Mamba hybrid, RWKV6, with or without a vision frontend) or, for an
+encoder-decoder config, an :class:`EncDecLM`, on the target device (the card
+by default), as ``repro.models.build_model`` picks its family.  MoE expert
+parallelism (``moe_weight_stationary``) raises: ROADMAP §1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .blocks import NOT_PORTED
 from .config import SHAPES, ArchConfig, ShapeConfig, dtype_name, torch_dtype
+from .encdec import EncDecLM
 from .lm import CausalLM
+from .moe import EP_NOT_PORTED
+
 
 def build_model(cfg: ArchConfig, *, device: DeviceLike = "cuda",
                 dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None) -> CausalLM:
-    """A seeded :class:`CausalLM` with its parameters on ``device``.
+                generator: Optional[torch.Generator] = None) -> Union[CausalLM, EncDecLM]:
+    """A seeded :class:`CausalLM` or :class:`EncDecLM` with its parameters
+    on ``device``.
 
     ``dtype`` overrides the config's parameter and compute dtypes (the f32
-    decay parameters of RWKV stay f32).  The parameters are seeded from one
-    draw of ``generator`` (seed 0 without one), each leaf from its own
-    stable seed, so a model is the same in every process.
+    leaves of RWKV's decay and Mamba's ``a_log``, ``dt_bias`` and ``d_skip``
+    stay f32).  The parameters are seeded from one draw of ``generator``
+    (seed 0 without one), each leaf from its own stable seed, so a model is
+    the same in every process.
     """
     dev = resolve_device(device)
-    if cfg.is_encdec:
-        raise NotImplementedError(f"encoder-decoder models ({cfg.name}) are {NOT_PORTED}")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.frontend} frontends ({cfg.name}) are {NOT_PORTED}")
+    if cfg.n_experts and cfg.moe_weight_stationary:
+        raise NotImplementedError(f"{cfg.name}: moe_weight_stationary serving {EP_NOT_PORTED}")
     if dtype is not None:
         name = dtype_name(dtype)
         cfg = dataclasses.replace(cfg, param_dtype=name, compute_dtype=name)
     seed = 0 if generator is None else int(
         torch.randint(0, 2 ** 62, (1,), generator=generator))
-    return CausalLM(cfg, device=dev, seed=seed)
+    return (EncDecLM if cfg.is_encdec else CausalLM)(cfg, device=dev, seed=seed)
 
 
-__all__ = ["ArchConfig", "CausalLM", "SHAPES", "ShapeConfig", "build_model", "torch_dtype"]
+__all__ = ["ArchConfig", "CausalLM", "EncDecLM", "SHAPES", "ShapeConfig", "build_model",
+           "torch_dtype"]

@@ -1,6 +1,6 @@
 """GQA self-attention: train / prefill (the flash kernel) and decode (KV cache).
 
-The port's ``repro.models.attention``, three of its paths:
+The port's ``repro.models.attention``, four of its paths:
 
 * ``full``   — self-attention over the whole sequence (train and prefill).
   By default through the flash-attention kernel
@@ -15,9 +15,11 @@ The port's ``repro.models.attention``, three of its paths:
   PyTorch, as JAX runs them without a Pallas kernel.
 * ``decode`` — T new tokens against the padded KV cache, written in place
   at each sequence's length.
+* ``cross``  — the enc-dec decoder's attention over the whole encoder
+  memory (:func:`cross_attention`, a plain f32 einsum as in JAX, over K/V
+  from :func:`project_cross_kv`, which carries no RoPE).
 
-Not ported yet: the mesh paths and sharding constraints, and the cross
-attention of the enc-dec family.
+Not ported yet: the mesh paths and sharding constraints.
 """
 from __future__ import annotations
 
@@ -301,3 +303,29 @@ def self_attention_decode(params, x, cfg, cache_k, cache_v, lengths, *, window=N
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
     out = o @ params["wo"].to(torch_dtype(cfg.compute_dtype))
     return out, cache_k, cache_v
+
+
+def cross_attention(params, x, memory_k, memory_v, cfg) -> torch.Tensor:
+    """Decoder cross-attention of x [B, T, D] over the encoder memory's K/V
+    [B, Hkv, Se, Dh], every memory position visible; f32 scores, softmax and
+    PV product, the output cast back to x's dtype before ``wo``."""
+    b, t, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cdt = torch_dtype(cfg.compute_dtype)
+    q = (x @ params["wq"].to(cdt)).reshape(b, t, hq, hd).transpose(1, 2)
+    qx = q.reshape(b, hkv, hq // hkv, t, hd).float()
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qx, memory_k.float()) * (hd ** -0.5)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, memory_v.float())
+    o = o.reshape(b, hq, t, hd).to(x.dtype).transpose(1, 2).reshape(b, t, hq * hd)
+    return o @ params["wo"].to(cdt)
+
+
+def project_cross_kv(params, memory, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V [B, Hkv, Se, Dh] of the encoder output (no RoPE)."""
+    b, se, _ = memory.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    cdt = torch_dtype(cfg.compute_dtype)
+    k = (memory @ params["wk"].to(cdt)).reshape(b, se, hkv, hd).transpose(1, 2)
+    v = (memory @ params["wv"].to(cdt)).reshape(b, se, hkv, hd).transpose(1, 2)
+    return k, v

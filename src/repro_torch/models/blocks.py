@@ -5,8 +5,8 @@ position's parameters over periods and scans; the port keeps one
 :class:`Block` module per layer (layer ``l`` is period ``l // period`` at
 pattern position ``l % period``) and loops over them.  ``layer_pattern`` is
 kept so the cache layout stays the JAX one: ``{"pos{j}": {leaf: [n_periods,
-B, ...]}}``.  Block kinds ported: ``attn`` (with a dense MLP) and ``rwkv``;
-``mamba`` and MoE raise.
+B, ...]}}``.  Every block kind of the JAX package: ``attn`` and ``mamba``,
+each with a dense MLP or an MoE feed-forward, and ``rwkv``.
 
 Training recomputes activations as JAX's ``run_stack_full`` does
 (``cfg.remat``, with ``torch.utils.checkpoint``, non-reentrant) whenever
@@ -29,10 +29,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .attention import attn_defs, self_attention_decode, self_attention_full
 from .layers import ParamTree, norm_def, rms_norm
 from .mlp import mlp, mlp_defs
+from .moe import moe, moe_defs
 from .rwkv import rwkv_channel_mix, rwkv_defs, rwkv_time_mix
-
-NOT_PORTED = ("not ported yet (ROADMAP §1b 'LM families: MoE, mamba/hybrid, "
-              "enc-dec, frontends')")
+from .ssm import mamba, mamba_defs
 
 
 def layer_pattern(cfg) -> Tuple[List[Tuple[str, bool]], int]:
@@ -50,19 +49,18 @@ def layer_pattern(cfg) -> Tuple[List[Tuple[str, bool]], int]:
 
 def block_defs(cfg, kind: str, is_moe: bool) -> Dict[str, Any]:
     """ParamDefs of one block (pre-norms + mixer + feed-forward)."""
-    if kind == "mamba":
-        raise NotImplementedError(f"mamba blocks are {NOT_PORTED}")
-    if is_moe:
-        raise NotImplementedError(f"MoE blocks are {NOT_PORTED}")
     defs: Dict[str, Any] = {"norm1": norm_def(cfg)}
     if kind == "rwkv":
         # rwkv block = time-mix + channel-mix, no separate mlp
         defs["time_mix"] = rwkv_defs(cfg)
         defs["norm2"] = norm_def(cfg)
         return defs
-    defs["attn"] = attn_defs(cfg)
+    if kind == "mamba":
+        defs["mamba"] = mamba_defs(cfg)
+    else:
+        defs["attn"] = attn_defs(cfg)
     defs["norm2"] = norm_def(cfg)
-    defs["ffn"] = mlp_defs(cfg)
+    defs["ffn"] = moe_defs(cfg) if is_moe else mlp_defs(cfg)
     return defs
 
 
@@ -73,7 +71,11 @@ class Block(ParamTree):
                  seed: int, prefix: str):
         super().__init__(block_defs(cfg, kind, is_moe), device=device, seed=seed,
                          prefix=prefix)
-        self.cfg, self.kind = cfg, kind
+        self.cfg, self.kind, self.is_moe = cfg, kind, is_moe
+
+    def _ffn(self, x):
+        h2 = rms_norm(x, self["norm2"], self.cfg.norm_eps)
+        return x + (moe if self.is_moe else mlp)(self["ffn"], h2, self.cfg)
 
     def full(self, x, positions, *, window=None, collect_cache: bool = False):
         """Full-sequence path.  Returns (x, cache leaf dict or None)."""
@@ -86,16 +88,19 @@ class Block(ParamTree):
             o2, cm_last = rwkv_channel_mix(self["time_mix"], h2, cfg, return_state=True)
             cache = {"tm_shift": tm_last, "wkv": wkv, "cm_shift": cm_last}
             return x + o2, (cache if collect_cache else None)
-        o, (k, v) = self_attention_full(self["attn"], h, positions, cfg, window=window,
-                                        return_kv=True)
-        x = x + o
-        h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
-        x = x + mlp(self["ffn"], h2, cfg)
-        return x, ({"k": k, "v": v} if collect_cache else None)
+        if self.kind == "mamba":
+            o, (conv_s, ssm_s) = mamba(self["mamba"], h, cfg, return_state=True)
+            cache = {"conv": conv_s, "ssm": ssm_s}
+        else:
+            o, (k, v) = self_attention_full(self["attn"], h, positions, cfg, window=window,
+                                            return_kv=True)
+            cache = {"k": k, "v": v}
+        return self._ffn(x + o), (cache if collect_cache else None)
 
     def decode(self, x, cache: Dict[str, torch.Tensor], lengths, *, window=None):
-        """One decode step.  Attention writes its KV cache in place; RWKV
-        returns its new states.  Returns (x, the cache leaves to replace)."""
+        """One decode step.  Attention writes its KV cache in place; RWKV and
+        Mamba return their new states.  Returns (x, the cache leaves to
+        replace)."""
         cfg = self.cfg
         h = rms_norm(x, self["norm1"], cfg.norm_eps)
         if self.kind == "rwkv":
@@ -107,11 +112,13 @@ class Block(ParamTree):
             o2, cm_last = rwkv_channel_mix(self["time_mix"], h2, cfg,
                                            shift_state=cache["cm_shift"], return_state=True)
             return x + o2, {"tm_shift": tm_last, "wkv": wkv, "cm_shift": cm_last}
+        if self.kind == "mamba":
+            o, (conv_s, ssm_s) = mamba(self["mamba"], h, cfg, conv_state=cache["conv"],
+                                       ssm_state=cache["ssm"], return_state=True)
+            return self._ffn(x + o), {"conv": conv_s, "ssm": ssm_s}
         o, _, _ = self_attention_decode(self["attn"], h, cfg, cache["k"], cache["v"],
                                         lengths, window=window)
-        x = x + o
-        h2 = rms_norm(x, self["norm2"], cfg.norm_eps)
-        return x + mlp(self["ffn"], h2, cfg), {}
+        return self._ffn(x + o), {}
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)

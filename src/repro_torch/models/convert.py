@@ -1,12 +1,17 @@
 """Carry parameter trees between the packages: ``params_from_jax`` and
 ``params_to_jax``.
 
-The JAX package keeps each pattern position's block parameters stacked over
-periods (``params["blocks"]["pos{j}"][...][p]``); the port keeps one module
-per layer (``blocks.{p·period + j}``).  Both store a weight as ``[d_in,
-d_out]`` and compute ``x @ W``, so every leaf carries over as it is.  The
-tree comes in as numpy arrays (``jax.tree.map(np.asarray, params)``); this
-module imports neither JAX nor the JAX package.
+The JAX package stacks its layers: ``CausalLM`` keeps each pattern
+position's block parameters stacked over periods
+(``params["blocks"]["pos{j}"][...][p]``), ``EncDecLM`` each stack's layers
+(``params["encoder"][...][l]``, ``params["decoder"][...][l]``).  The port
+keeps one module per layer (``blocks.{p·period + j}``, ``encoder.{l}``,
+``decoder.{l}``).  Both store a weight as ``[d_in, d_out]`` (an expert's
+``[E, d_in, d_out]``) and compute ``x @ W``, so every leaf carries over as
+it is; the other leaves (``embed``, ``final_norm``, ``frontend``,
+``enc_norm``) keep their paths.  The tree comes in as numpy arrays
+(``jax.tree.map(np.asarray, params)``); this module imports neither JAX nor
+the JAX package.
 
 :func:`params_to_jax` is the inverse, so the trainer keeps its checkpoints
 in JAX's layout (``params``, ``opt_m``, ``opt_v``: each a stacked tree) and
@@ -47,20 +52,36 @@ def _flatten(tree: Dict[str, Any], prefix: str, out: Dict[str, Any]) -> None:
             out[key] = leaf
 
 
-def params_from_jax(cfg: ArchConfig, params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX ``CausalLM`` parameter tree (numpy leaves) as the port's
-    ``state_dict`` (CPU tensors in the JAX dtypes; ``load_state_dict``
-    copies them to the model's device and dtype)."""
+def _layer_slots(cfg: ArchConfig):
+    """``{port stack name: [(JAX path, index in its stacked leaves)] per layer}``."""
+    if cfg.is_encdec:
+        return {name: [([name], l) for l in range(n)]
+                for name, n in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers))}
     pattern, n_periods = layer_pattern(cfg)
     period = len(pattern)
+    return {"blocks": [(["blocks", f"pos{layer % period}"], layer // period)
+                       for layer in range(n_periods * period)]}
+
+
+def _node(tree: Dict[str, Any], path) -> Any:
+    for name in path:
+        tree = tree[name]
+    return tree
+
+
+def params_from_jax(cfg: ArchConfig, params_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``CausalLM`` or ``EncDecLM`` parameter tree (numpy leaves) as
+    the port's ``state_dict`` (CPU tensors in the JAX dtypes;
+    ``load_state_dict`` copies them to the model's device and dtype)."""
+    slots = _layer_slots(cfg)
     flat: Dict[str, Any] = {}
-    _flatten({"embed": params_np["embed"], "final_norm": params_np["final_norm"]}, "", flat)
-    for j in range(period):
-        stacked: Dict[str, Any] = {}
-        _flatten(params_np["blocks"][f"pos{j}"], "", stacked)
-        for p in range(n_periods):
+    _flatten({k: v for k, v in params_np.items() if k not in slots}, "", flat)
+    for name, layers in slots.items():
+        for layer, (path, i) in enumerate(layers):
+            stacked: Dict[str, Any] = {}
+            _flatten(_node(params_np, path), "", stacked)
             for key, leaf in stacked.items():
-                flat[f"blocks.{p * period + j}.{key}"] = np.asarray(leaf)[p]
+                flat[f"{name}.{layer}.{key}"] = np.asarray(leaf)[i]
     return {k: _tensor(v) for k, v in flat.items()}
 
 
@@ -73,10 +94,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_to_jax(cfg: ArchConfig, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The port's ``state_dict`` (or any dict keyed like it, e.g. AdamW
-    moments) as the JAX ``CausalLM`` tree: numpy leaves on the host, block
-    leaves stacked ``[n_periods, ...]`` under ``blocks/pos{j}``."""
-    pattern, n_periods = layer_pattern(cfg)
-    period = len(pattern)
+    moments) as the JAX tree: numpy leaves on the host, layer leaves stacked
+    as JAX stacks them (``[n_periods, ...]`` under ``blocks/pos{j}``,
+    ``[n_layers, ...]`` under ``encoder`` and ``decoder``)."""
+    slots = _layer_slots(cfg)
     tree: Dict[str, Any] = {}
 
     def put(path, leaf):
@@ -85,18 +106,14 @@ def params_to_jax(cfg: ArchConfig, state: Mapping[str, torch.Tensor]) -> Dict[st
             node = node.setdefault(name, {})
         node[path[-1]] = leaf
 
-    per_layer: Dict[str, Any] = {}
+    groups: Dict[tuple, Dict[int, torch.Tensor]] = {}   # (JAX path, leaf key) → {index: leaf}
     for key, t in state.items():
         parts = key.split(".")
-        if parts[0] == "blocks":
-            per_layer[key] = t
+        if parts[0] in slots:
+            path, i = slots[parts[0]][int(parts[1])]
+            groups.setdefault((tuple(path), ".".join(parts[2:])), {})[i] = t
         else:
             put(parts, _numpy(t))
-    for j in range(period):
-        keys = sorted({k.split(".", 2)[2] for k in per_layer
-                       if int(k.split(".")[1]) % period == j})
-        for key in keys:
-            stacked = np.stack([_numpy(per_layer[f"blocks.{p * period + j}.{key}"])
-                                for p in range(n_periods)])
-            put(["blocks", f"pos{j}", *key.split(".")], stacked)
+    for (path, key), leaves in groups.items():
+        put([*path, *key.split(".")], np.stack([_numpy(leaves[i]) for i in sorted(leaves)]))
     return tree

@@ -3,11 +3,14 @@
 The port's ``repro.models.lm``.  Entry points:
 
 * ``forward(batch)`` — logits for a full sequence; ``batch`` is JAX's dict
-  (``{"tokens": [B, S], ...}``) or the token tensor itself.
+  (``{"tokens": [B, S], ...}``, with ``"frontend_feats"`` [B, P, F] for a
+  frontend config: their projection overwrites positions [0, P) of the
+  embeddings) or the token tensor itself.
 * ``loss(batch)`` — (mean token NLL, metrics) against ``batch["labels"]``,
   over ``batch["loss_mask"]`` where given (the training objective).
-* ``prefill(tokens, cache_len)`` — full forward that also returns the
-  serving cache and the lengths.
+* ``prefill(batch, cache_len)`` — full forward that also returns the
+  serving cache and the lengths; ``batch`` as for ``forward`` (the serving
+  engine passes the bare token tensor, as JAX's passes tokens only).
 * ``decode(cache, tokens, lengths)`` — one incremental step against the
   cache.  The cache is updated in place (the JAX package returns a new one;
   in place saves a copy of every layer's cache per step) and returned.
@@ -16,7 +19,8 @@ The port's ``repro.models.lm``.  Entry points:
 The cache keeps the JAX layout: ``{"pos{j}": {leaf: [n_periods, B, ...]}}``
 with ``k``/``v`` ``[.., B, Hkv, cache_len, Dh]`` for attention and
 ``tm_shift``/``cm_shift`` ``[.., B, D]`` and ``wkv`` ``[.., B, H, Dh, Dh]``
-(f32) for RWKV.
+(f32) for RWKV, ``conv`` ``[.., B, K-1, Di]`` (compute dtype) and ``ssm``
+``[.., B, Di, Ds]`` (f32) for Mamba.
 """
 from __future__ import annotations
 
@@ -27,17 +31,21 @@ from torch import nn
 
 from .blocks import Block, layer_pattern, run_stack_decode, run_stack_full
 from .config import ArchConfig, torch_dtype
+from .frontends import frontend_defs, project_frontend
 from .layers import add_params, cross_entropy_loss, embed_defs, norm_def, rms_norm
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
+Batch = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
 
 class CausalLM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: torch.device, seed: int = 0):
         super().__init__()
         self.cfg = cfg
-        add_params(self, {"embed": embed_defs(cfg), "final_norm": norm_def(cfg)},
-                   device=device, seed=seed)
+        defs = {"embed": embed_defs(cfg), "final_norm": norm_def(cfg)}
+        if cfg.frontend:
+            defs["frontend"] = frontend_defs(cfg)
+        add_params(self, defs, device=device, seed=seed)
         pattern, _ = layer_pattern(cfg)
         period = len(pattern)
         self.blocks = nn.ModuleList(
@@ -69,13 +77,26 @@ class CausalLM(nn.Module):
             logits = torch.tanh(logits / c) * c
         return logits
 
+    def _inputs(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(token ids, embeddings with the frontend prefix fused in)."""
+        if not isinstance(batch, Mapping):
+            return batch, self._embed(batch)
+        tokens = batch["tokens"]
+        h = self._embed(tokens)
+        if self.cfg.frontend and "frontend_feats" in batch:
+            pre = project_frontend(self.frontend, batch["frontend_feats"], self.cfg)
+            if pre.shape[1] > h.shape[1]:
+                raise ValueError(f"{pre.shape[1]} frontend positions do not fit in "
+                                 f"{h.shape[1]} tokens")
+            h = torch.cat([pre.to(h.dtype), h[:, pre.shape[1]:]], dim=1)
+        return tokens, h
+
     # ---- full-sequence path ------------------------------------------------
-    def forward(self, batch: Union[Mapping[str, torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        tokens = batch["tokens"] if isinstance(batch, Mapping) else batch
+    def forward(self, batch: Batch) -> torch.Tensor:
+        tokens, h = self._inputs(batch)
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h, _ = run_stack_full(self.blocks, self._embed(tokens), positions, self.cfg,
-                              window=self.cfg.window)
+        h, _ = run_stack_full(self.blocks, h, positions, self.cfg, window=self.cfg.window)
         return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
 
     def loss(self, batch: Mapping[str, torch.Tensor]
@@ -93,6 +114,12 @@ class CausalLM(nn.Module):
             if kind == "attn":
                 kv = ((n_periods, batch_size, cfg.n_kv_heads, cache_len, cfg.hd), cdt)
                 out[f"pos{j}"] = {"k": kv, "v": kv}
+            elif kind == "mamba":
+                out[f"pos{j}"] = {
+                    "conv": ((n_periods, batch_size, cfg.ssm_d_conv - 1, cfg.ssm_d_inner), cdt),
+                    "ssm": ((n_periods, batch_size, cfg.ssm_d_inner, cfg.ssm_d_state),
+                            torch.float32),
+                }
             else:  # rwkv
                 shift = ((n_periods, batch_size, cfg.d_model), cdt)
                 hd = cfg.rwkv_head_dim
@@ -126,14 +153,15 @@ class CausalLM(nn.Module):
                     dst.copy_(val)
         return cache
 
-    def prefill(self, tokens: torch.Tensor, cache_len: int
+    def prefill(self, batch: Batch, cache_len: int
                 ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
         """Full forward + cache build.  Returns (last-token logits [B, 1, V],
         cache, lengths [B] int32)."""
         cfg = self.cfg
+        tokens, h = self._inputs(batch)
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        h, per_layer = run_stack_full(self.blocks, self._embed(tokens), positions, cfg,
+        h, per_layer = run_stack_full(self.blocks, h, positions, cfg,
                                       window=cfg.window, collect_cache=True)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         logits = self._logits(h[:, -1:])

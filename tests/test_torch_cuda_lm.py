@@ -15,7 +15,8 @@ RWKV6 rtol = atol = 1e-4, on both of its paths (decode below the chunk
 length, chunked from it on), with sigmoid decays and with the model's
 decays w = exp(−exp(z)), z over [−8, 4].  Both against the
 kernels' plain versions on the same card.  Served tokens card == CPU, in f32
-with TF32 off.
+with TF32 off, for the dense, RWKV6, MoE, Mamba-hybrid and VLM families (the
+VLM's prefill with frontend features too) and the enc-dec's greedy decode.
 """
 import numpy as np
 import pytest
@@ -43,6 +44,10 @@ FLASH_SHAPES = [  # b, hq, hkv, sq, skv, dh, causal, window
     (1, 32, 4, 1024, 1024, 64, True, None),   # tinyllama prefill, full width
     (1, 8, 1, 300, 300, 256, True, None),     # gemma-2b heads
     (1, 32, 8, 2048, 2048, 128, True, None),  # mistral-nemo-12b heads, 2,048 tokens
+    (2, 16, 16, 300, 300, 64, False, None),   # seamless-m4t encoder heads, non-causal
+    (1, 8, 2, 200, 200, 128, False, None),    # non-causal GQA at Dh 128, a ragged tile
+    (1, 4, 1, 96, 160, 64, False, None),      # non-causal, more keys than queries
+    (1, 64, 4, 512, 512, 128, True, None),    # qwen3-moe heads: a GQA group of 16
 ]
 RWKV_SHAPES = [  # b, h, t, d
     (2, 2, 64, 16), (1, 3, 128, 32), (2, 1, 33, 8), (1, 2, 256, 64), (1, 1, 7, 4),
@@ -226,7 +231,8 @@ def test_wrappers_reject_bad_operands(cuda_device):
         rwkv6(r, r, r, r, u.cpu())
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-3b", "qwen3-moe-235b-a22b",
+                                  "kimi-k2-1t-a32b", "jamba-1.5-large-398b", "llava-next-34b"])
 def test_reduced_model_served_on_card_equals_cpu(cuda_device, arch):
     cfg = get_config(arch).reduced()
     cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
@@ -244,6 +250,46 @@ def test_reduced_model_served_on_card_equals_cpu(cuda_device, arch):
     rwkv_ops.reset_launch_counts()
     assert serve(card, cuda_device) == serve(cpu, "cpu")
     counts = {**flash_ops.launch_counts(), **rwkv_ops.launch_counts()}
-    assert counts["flash_attention" if arch.startswith("tiny") else "rwkv6"] > 0
+    assert counts["rwkv6" if arch.startswith("rwkv") else "flash_attention"] > 0
     if arch.startswith("rwkv"):   # prompts of 3-20 tokens: decode-path prefills and steps
         assert counts["rwkv6_decode"] > 0
+    if cfg.frontend:              # a prefill with the frontend's features, card against CPU
+        feats = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, cfg.frontend_tokens + 6)))
+        with torch.inference_mode():
+            want, _, _ = cpu.prefill({"tokens": toks, "frontend_feats": feats}, 24)
+            got, _, _ = card.prefill({"tokens": toks.to(cuda_device),
+                                      "frontend_feats": feats.to(cuda_device)}, 24)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_reduced_encdec_on_card_equals_cpu(cuda_device):
+    """seamless-m4t reduced: the encoder's non-causal flash launches (one a
+    layer), then 6 greedy decode steps; tokens equal and logits within
+    1e-4·max|logit| of the CPU's."""
+    cfg = get_config("seamless-m4t-medium").reduced()
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(2))
+    card = build_model(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    frames = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (3, 40, cfg.frontend_dim)).astype(np.float32))
+
+    def greedy(model, device):
+        with torch.inference_mode():
+            cache, lengths = model.prefill({"frames": frames.to(device)}, 8)
+            tok = torch.zeros((3, 1), dtype=torch.long, device=device)
+            toks, logits = [], []
+            for _ in range(6):
+                lg, cache, lengths = model.decode(cache, tok, lengths)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+                toks.append(tok.cpu())
+                logits.append(lg.cpu())
+        return torch.cat(toks, 1), torch.cat(logits, 1)
+
+    flash_ops.reset_launch_counts()
+    got_toks, got = greedy(card, cuda_device)
+    assert flash_ops.launch_counts()["flash_attention"] == cfg.enc_layers
+    want_toks, want = greedy(cpu, "cpu")
+    assert torch.equal(got_toks, want_toks)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -257,8 +257,10 @@ def test_port_exports_every_reference_name():
 
 def test_port_imports_no_jax_or_repro(tmp_path):
     """Importing and running the port (reductions, the reduct service with
-    one query served through a CPU ``ReductServer``, LM serving of both
-    ported families, one reduced training step, and the mesh driver on two
+    one query served through a CPU ``ReductServer``, LM serving of every
+    family (the dense, RWKV6, MoE and Mamba-hybrid engines, a VLM prefill
+    with frontend features, an enc-dec prefill and decode), one reduced
+    training step, and the mesh driver on two
     spawned gloo ranks) leaves
     jax and repro out of sys.modules.  ``jax`` and ``repro`` are made
     unimportable for the process and its ranks, so a rank that imports
@@ -305,6 +307,27 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "    out = eng.serve([Request(rid=i, prompt=np.arange(3 + 7 * i), max_new_tokens=3)\n"
         "                     for i in range(3)])\n"
         "    assert [len(r.output) for r in out] == [3, 3, 3]\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.encdec, repro_torch.models.frontends\n"
+        "import torch\n"
+        "for arch in ('qwen3-moe-235b-a22b', 'kimi-k2-1t-a32b', 'jamba-1.5-large-398b'):\n"
+        "    cfg = get_config(arch).reduced()\n"
+        "    eng = ServingEngine(cfg, build_model(cfg, device='cpu'), max_batch=2,\n"
+        "                        cache_len=24, device='cpu')\n"
+        "    out = eng.serve([Request(rid=i, prompt=np.arange(3 + 7 * i), max_new_tokens=3)\n"
+        "                     for i in range(3)])\n"
+        "    assert [len(r.output) for r in out] == [3, 3, 3]\n"
+        "cfg = get_config('llava-next-34b').reduced()\n"
+        "lm = build_model(cfg, device='cpu')\n"
+        "feats = torch.zeros((1, cfg.frontend_tokens, cfg.frontend_dim))\n"
+        "batch = {'tokens': torch.arange(12)[None], 'frontend_feats': feats}\n"
+        "lg, cache, lens = lm.prefill(batch, 16)\n"
+        "lg, cache, lens = lm.decode(cache, lg.argmax(-1), lens)\n"
+        "cfg = get_config('seamless-m4t-medium').reduced()\n"
+        "ed = build_model(cfg, device='cpu')\n"
+        "cache, lens = ed.prefill({'frames': torch.zeros((1, 9, cfg.frontend_dim))}, 4)\n"
+        "lg, cache, lens = ed.decode(cache, torch.zeros((1, 1), dtype=torch.long), lens)\n"
+        "assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all())\n"
         "import repro_torch.train, repro_torch.launch.train\n"
         "state, hist = repro_torch.launch.train.main(['--arch', 'rwkv6-3b', '--smoke',\n"
         "    '--steps', '1', '--global-batch', '2', '--seq-len', '8', '--device', 'cpu'])\n"
