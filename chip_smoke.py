@@ -28,8 +28,10 @@ is missing.  Phases, each printing one JSON line:
    row prints max|plain| and the error relative to it.  CUDA-event times of
    kernel, plain version and, for the contingency, one
    ``index_put_(accumulate=True)`` call (a yardstick the port never calls),
-   beside the bound: the larger of bytes moved once over 3.35 TB/s and
-   operations over 67 TFLOP/s (H100 SXM float32, non-tensor);
+   beside the bound: the larger of bytes moved once over the card's memory
+   rate and operations over its float32 (non-tensor) peak, the figures of
+   ``repro_torch.launch.roofline`` for the card's name (H100 SXM: 3.35 TB/s,
+   67 TFLOP/s); each row names the tiling the analytic selector gave it;
 4. main path: ``python -m repro_torch.launch.reduce --dataset kdd99
    --max-rows 5000000 --device cuda`` in-process with ``--backend sweep``
    (PR and SCE), ``fused``, ``pallas`` and ``segment`` (PR, the plain
@@ -66,7 +68,7 @@ The LM serving slice adds:
    operations per visible (query, key) pair over 989 TFLOP/s (bf16) against
    q, k, v, o read or written once over 3.35 TB/s; RWKV6 5·D² f32
    operations per token and head (r·S, then w ⊙ S + k·vᵀ) over 67 TFLOP/s
-   against r, k, v, w, o and the state once;
+   against r, k, v, w, o and the state once (the roofline module's figures);
 7. serving at full width and full depth in bf16, tinyllama-1.1b then
    rwkv6-3b, through ``build_model`` and ``ServingEngine.serve``: 8 requests,
    prompt lengths seeded in [256, 1,536], 32 new tokens, ``max_batch`` 4,
@@ -226,6 +228,27 @@ The families slice adds, after phase 13:
     1e-4·max|CPU|; where a token differs the CPU's top-2 gap is printed,
     and for MoE whether the router's top-k differed.
 
+The tile-selection slice adds, after phase 15 (the disk cache of tunings
+points at ``build/chip_smoke_autotune/`` for the whole run, emptied at its
+start and removed at its end, so no earlier tuning leaks in):
+
+16. tiles: (a) on a small table (nc 9, G 20,000, n_bins 12,000, V 10;
+    n_dec 2 and 23; class ids r from [0, 1) — every granule in one class,
+    its segment long and split — and from [0, 300)), every feasible tiling
+    of each kernel (``model.feasible_tiles``) against its plain version:
+    the contingency and Θ_PR bit-equal, Θ_SCE bit-equal across the tilings
+    and within phase 3's tolerance of the plain version; (b) at phase 3's
+    top row (n_bins 1,310,720, r uniform, Θ_PR), each kernel's pinned
+    (the kernels' earlier fixed shapes), heuristic, analytic and ``refine=True`` top-3
+    tilings, and the model's top 3: ``ms``, the median of 5 CUDA-event
+    means of 10 back-to-back calls (host work included, as phase 3's),
+    ``graph_ms`` for the Θ kernels (5 calls replayed in a CUDA graph: the
+    device time alone), the modeled ms and the bound, one line each beside
+    the ``nvidia-smi`` line;
+    (c) kdd99 (5,000,000 x 41) reduced once for each selector on ``sweep``
+    (host loop) and on ``segment`` (device engine), after clearing the
+    tunings (b) persisted: the reduct and the Θ_PR history equal phase 4's.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
@@ -237,7 +260,10 @@ entries also carry ``service_launches``, their launches in phase 11, and
 ``train_ms`` / ``train_plain_ms``, forward + backward of the differentiable
 wrapper and of the plain version's autograd at the shapes of 13 (a).
 Flash also carries ``families_launches``, its launches by model in phase
-14, and ``families_rows``, phase 6's two rows of the families slice.
+14, and ``families_rows``, phase 6's two rows of the families slice.  The
+three contingency kernels carry ``tiles`` (phase 16's picks by selector)
+and ``tiles_ms`` (their times there): ``analytic_tiles``/``analytic_ms``
+and ``pinned_ms`` beside them.
 """
 from __future__ import annotations
 
@@ -249,6 +275,7 @@ import importlib.util
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -258,9 +285,7 @@ from pathlib import Path
 
 import numpy as np
 
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_F32_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
-PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+CARD = types.SimpleNamespace(spec=None, roofline=None)  # the roofline module and the card's spec
 SHAPE = dict(G=131_072, n_dec=23, V=10, nc=41)
 N_BINS = (160, 10_240, 1_310_720)
 SKEWED_K = (1, 1_024)   # sweep-only rows at the top n_bins: r drawn from [0, K)
@@ -329,6 +354,10 @@ SERVICE = dict(first=2_500_000, update_rows=625_000, updates=4,
                drop=2)
 CARD_BYTES = 80e9        # the H100's device memory
 MESH_SCATTER_SHAPE = (41, 131_072, 23)   # [nc, bins, m] of phase 12's reduce_scatter check
+TILES_SMALL = dict(nc=9, G=20_000, n_bins=12_000, V=10, n_decs=(2, 23), Ks=(1, 300))
+TILES_REPS = 5      # phase 16 (b): repeats of 10 calls, and calls a CUDA graph holds
+TILE_KERNELS = {"contingency": "contingency", "fused": "fused_theta", "sweep": "sweep_theta"}
+AUTOTUNE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_autotune"
 MESH_RUNS = [  # (delta, collective, engine) of phase 12 on the kdd99 granularity
     ("PR", "all_reduce", "host"), ("PR", "all_reduce", "device"),
     ("PR", "reduce_scatter", "host"), ("PR", "reduce_scatter", "device"),
@@ -391,10 +420,14 @@ def graph_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, ops: float, dtype: str = "f32"):
+    """The least ms the card could take, and what bounds it: bytes moved
+    once over its memory rate, or operations over its peak for ``dtype``
+    (``repro_torch.launch.roofline``'s figures for this card)."""
+    t = CARD.roofline.roofline_terms(ops, nbytes, 0.0, dtype=dtype, spec=CARD.spec)
+    if t["memory_s"] >= t["compute_s"]:
+        return t["memory_s"] * 1e3, "bytes"
+    return t["compute_s"] * 1e3, "operations"
 
 
 def operands(torch, n_bins: int, dev, K=None):
@@ -477,7 +510,9 @@ def phase_kernels(torch, ops, ref, card: str) -> dict:
                 ms=time_ms(torch, lambda: ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec), reps),
                 plain_ms=time_ms(torch, lambda: ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec), plain_reps),
                 library_ms=time_ms(torch, library, plain_reps),
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by,
+                tiles=list(ops.resolve_tiles("contingency", nc=nc, g=G, n_bins=n_bins, m=n_dec,
+                                             device=dev))))
             del c_idx, p_idx, d_idx, w_val, keep
             torch.cuda.empty_cache()
 
@@ -491,6 +526,8 @@ def phase_kernels(torch, ops, ref, card: str) -> dict:
                 delta, packed.numel() * 4 + 2 * G * 4 + nc * 4, nc, G, reps, plain_reps,
                 n_bins=n_bins, K=K)
             row["same_bits_again"] = torch.equal(fused_got, fused())
+            row["tiles"] = list(ops.resolve_tiles("fused", nc=nc, g=G, n_bins=n_bins, m=n_dec,
+                                                  delta=delta, device=dev))
             if not row["same_bits_again"]:
                 raise AssertionError(f"fused_theta bits differ on a second run for {delta} at "
                                      f"n_bins={n_bins}, K={K}")
@@ -508,6 +545,8 @@ def phase_kernels(torch, ops, ref, card: str) -> dict:
             # the same bits on a second run, at a smaller rung >= K·V, and
             # (Θ_PR) from the fused kernel
             row["same_bits_again"] = torch.equal(got, sweep())
+            row["tiles"] = list(ops.resolve_tiles("sweep", nc=nc, g=G, n_bins=n_bins, m=n_dec,
+                                                  v_max=V, delta=delta, device=dev))
             if K * V <= N_BINS[1] < n_bins:
                 row["same_bits_at_rung"] = torch.equal(got, sweep(N_BINS[1]))
             if delta == "PR" and "fused" in pr:
@@ -1138,7 +1177,7 @@ def phase_lm_kernels(torch, fa, rk, card: str) -> dict:
         del got32, want32, diff
         pairs = b * (s * (s + 1) // 2 if causal else s * s)   # visible (query, key) pairs
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-        b_ms, b_by = bound(nbytes, 4 * hq * dh * pairs, PEAK_BF16_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, 4 * hq * dh * pairs, "bf16")
         rows.append(dict(
             kernel="flash_attention", shape=dict(B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh,
                                                  dtype="bfloat16", causal=causal),
@@ -2074,6 +2113,187 @@ def phase_families_cross(torch, card: str) -> dict:
     return results
 
 
+def median_ms(torch, fn, reps: int, calls: int = 10) -> float:
+    """Median over ``reps`` repeats of the mean CUDA-event time of ``calls``
+    back-to-back calls of ``fn`` (a wrapper's host work included, as phase
+    3's times), after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def _tile_call(ops, kernel: str, o: dict, n_bins: int, n_dec: int, delta, tiles, V: int):
+    """One wrapper call of ``kernel`` on the operands ``o`` with ``tiles``."""
+    if kernel == "contingency":
+        return ops.contingency(o["packed"], o["d"], o["w"], n_bins=n_bins, n_dec=n_dec,
+                               threads=tiles[0], ctas=tiles[1])
+    if kernel == "fused":
+        return ops.fused_theta(o["packed"], o["d"], o["w"], o["n"], delta=delta, n_bins=n_bins,
+                               n_dec=n_dec, chunk=tiles[0], threads=tiles[1])
+    return ops.sweep_theta(o["x_t"], o["r"], o["d"], o["w"], o["n"], delta=delta, v_max=V,
+                           n_bins=n_bins, n_dec=n_dec, bc=tiles[0], chunk=tiles[1],
+                           threads=tiles[2])
+
+
+def _plain_call(ref, kernel: str, o: dict, n_bins: int, n_dec: int, delta, V: int):
+    if kernel == "contingency":
+        return ref.contingency_ref(o["packed"], o["d"], o["w"], n_bins=n_bins, n_dec=n_dec)
+    if kernel == "fused":
+        return ref.fused_theta_ref(o["packed"], o["d"], o["w"], o["n"], delta=delta,
+                                   n_bins=n_bins, n_dec=n_dec)
+    return ref.sweep_theta_ref(o["x_t"], o["r"], o["d"], o["w"], o["n"], delta=delta, v_max=V,
+                               n_bins=n_bins, n_dec=n_dec)
+
+
+def _tiles_bit_equal(torch, ops, ref, model) -> dict:
+    """16 (a): every feasible tiling of each kernel against its plain version."""
+    dev = torch.device("cuda")
+    nc, G, n_bins, V = (TILES_SMALL[k] for k in ("nc", "G", "n_bins", "V"))
+    checked = {name: 0 for name in TILE_KERNELS}
+    for n_dec in TILES_SMALL["n_decs"]:
+        for K in TILES_SMALL["Ks"]:
+            gen = torch.Generator().manual_seed(1600 + 10 * n_dec + K)
+            r = torch.randint(0, K, (G,), generator=gen, dtype=torch.int32)
+            x_t = torch.randint(0, V, (nc, G), generator=gen, dtype=torch.int32)
+            d = torch.randint(0, n_dec, (G,), generator=gen, dtype=torch.int32)
+            w = torch.randint(1, 200, (G,), generator=gen).to(torch.float32)
+            pad = torch.rand((G,), generator=gen) < 0.24
+            w[pad] = 0.0
+            o = {k: t.to(dev) for k, t in dict(r=r, x_t=x_t, d=d, w=w).items()}
+            o["packed"] = (o["r"][None, :] * V + o["x_t"]).contiguous()
+            o["n"] = float(w.sum())
+            for kernel in TILE_KERNELS:
+                tilings = model.feasible_tiles(kernel, nc, G, n_bins, n_dec)
+                for delta in ((None,) if kernel == "contingency" else ("PR", "SCE")):
+                    want = _plain_call(ref, kernel, o, n_bins, n_dec, delta, V)
+                    first = None
+                    for tiles in tilings:
+                        got = _tile_call(ops, kernel, o, n_bins, n_dec, delta, tiles, V)
+                        first = got if first is None else first
+                        if delta in (None, "PR"):
+                            ok = torch.equal(got, want)
+                        else:
+                            scale = float(want.abs().max())
+                            ok = torch.equal(got, first) and torch.allclose(
+                                got, want, rtol=1e-5, atol=1e-6 * scale)
+                        if not ok:
+                            raise AssertionError(
+                                f"{kernel} tiling {tiles} != plain for {delta} at n_dec={n_dec},"
+                                f" K={K}: max err {float((got - want).abs().max())}")
+                        checked[kernel] += 1
+    torch.cuda.synchronize()
+    return {"launches_checked": checked, "shape": {k: v for k, v in TILES_SMALL.items()}}
+
+
+def _tiles_at_kdd99(torch, ops, autotune, model, card: str) -> dict:
+    """16 (b): the selectors' tilings at phase 3's top row, measured, modeled
+    and bounded."""
+    dev = torch.device("cuda")
+    G, n_dec, V, nc = SHAPE["G"], SHAPE["n_dec"], SHAPE["V"], SHAPE["nc"]
+    top = N_BINS[-1]
+    x_t, r, d, w, packed = operands(torch, top, dev)
+    # |U| on the card: a host scalar would be copied in, which a CUDA graph refuses
+    o = dict(x_t=x_t, r=r, d=d, w=w, packed=packed, n=torch.tensor(float(w.sum()), device=dev))
+    nbytes = {"contingency": packed.numel() * 4 + 2 * G * 4 + nc * top * n_dec * 4,
+              "fused": packed.numel() * 4 + 2 * G * 4 + nc * 4,
+              "sweep": x_t.numel() * 4 + 3 * G * 4 + nc * 4}
+    ops_count = {"contingency": nc * G, "fused": 5 * nc * G, "sweep": 5 * nc * G}
+    out = {}
+    for kernel in TILE_KERNELS:
+        delta = None if kernel == "contingency" else "PR"
+        shape = dict(nc=nc, g=G, n_bins=top, m=n_dec, v_max=V, delta="PR")
+        picks = {sel: tuple(autotune.resolve_tiles(kernel, selector=sel, device=dev, **shape))
+                 for sel in autotune.SELECTOR_MODES}
+        picks["refined"] = tuple(autotune.autotune_block_sizes(
+            nc, G, top, n_dec, kernel=kernel, delta=delta, v_max=V, refine=True, top_k=3,
+            device=dev))
+        ranked = model.rank_tiles(kernel, nc, G, top, n_dec, v_max=V, delta="PR", spec=CARD.spec)
+        order = [picks["pinned"], picks["heuristic"], picks["analytic"], picks["refined"]]
+        order += [t for t, _, _ in ranked[:3]]
+        b_ms, b_by = bound(nbytes[kernel], ops_count[kernel])
+        rows = []
+        for tiles in dict.fromkeys(order):
+            cost = model.kernel_cost(kernel, nc, G, top, n_dec, tiles, v_max=V, delta="PR",
+                                     spec=CARD.spec)
+            row = dict(kernel=TILE_KERNELS[kernel], tiles=list(tiles),
+                       fields=list(model.TILE_FIELDS[kernel]),
+                       selectors=[k for k, v in picks.items() if v == tiles],
+                       model_rank=next((i for i, (t, _, _) in enumerate(ranked) if t == tiles),
+                                       None),
+                       ms=median_ms(torch, lambda t=tiles: _tile_call(
+                           ops, kernel, o, top, n_dec, delta, t, V), TILES_REPS),
+                       # the device time alone (a CUDA graph of 5 calls); the
+                       # contingency's 4.9 GB output a call is left out
+                       graph_ms=None if kernel == "contingency" else graph_ms(
+                           torch, lambda t=tiles: _tile_call(ops, kernel, o, top, n_dec, delta,
+                                                             t, V), TILES_REPS),
+                       modeled_ms=model.modeled_time_s(cost, CARD.spec) * 1e3,
+                       bound_ms=b_ms, bound_by=b_by, n_bins=top, delta=delta)
+            rows.append(row)
+            emit({"phase": "tiles_kdd99", "card": card, **row})
+            torch.cuda.empty_cache()
+        out[kernel] = {"picks": {k: list(v) for k, v in picks.items()}, "rows": rows}
+    return out
+
+
+def _tiles_reductions(torch, ops, autotune, engine, plar_reduce, gran, main_runs) -> list:
+    """16 (c): kdd99 under each selector on sweep and on segment (device
+    engine); reducts and Θ_PR histories equal phase 4's."""
+    autotune.autotune_cache_clear(disk=True)     # the model's own picks, not (b)'s tunings
+    want = {o["backend"]: o for o in main_runs if o["delta"] == "PR"}
+    rows = []
+    for backend, eng in (("sweep", "host"), ("segment", "device")):
+        for sel in autotune.SELECTOR_MODES:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = plar_reduce(source=gran, delta="PR", backend=backend, engine=eng, selector=sel,
+                              device="cuda")
+            torch.cuda.synchronize()
+            row = dict(backend=backend, engine=eng, selector=sel, reduct=res.reduct,
+                       elapsed_s=res.elapsed_s, wall_s=time.perf_counter() - t0,
+                       launches=ops.launch_counts(),
+                       same_as_phase_4=(res.reduct, res.core, res.theta_history) == (
+                           want[backend]["reduct"], want[backend]["core"],
+                           want[backend]["theta_history"]))
+            if not row["same_as_phase_4"]:
+                raise AssertionError(f"kdd99 {backend}/{sel} differs from phase 4: {row}")
+            if backend == "sweep" and row["launches"]["sweep_theta"] <= 0:
+                raise AssertionError(f"the sweep kernel was not launched under {sel}")
+            rows.append(row)
+        engine.release_graphs()
+    return rows
+
+
+def phase_tiles(torch, ops, ref, autotune, model, engine, plar_reduce, resolve_granularity,
+                scaled_paper_dataset, main_runs, card: str) -> dict:
+    """Phase 16: every tiling gives the plain bits; the selectors' tilings
+    timed at kdd99's shapes; kdd99 reduced under each selector."""
+    out = {"bit_equal": _tiles_bit_equal(torch, ops, ref, model)}
+    emit({"phase": "tiles_bit_equal", "card": card, **out["bit_equal"]})
+    print(card, flush=True)
+    out["kdd99"] = _tiles_at_kdd99(torch, ops, autotune, model, card)
+    x, d = scaled_paper_dataset("kdd99", max_rows=5_000_000, max_attrs=64).table()
+    gran = resolve_granularity(x, d, device="cuda")
+    del x, d
+    out["reductions"] = _tiles_reductions(torch, ops, autotune, engine, plar_reduce, gran,
+                                          main_runs)
+    for row in out["reductions"]:
+        emit({"phase": "tiles_reduce", "card": card, **row})
+    del gran
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the full report here (JSON)")
@@ -2096,8 +2316,13 @@ def main() -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6 as rk
-    from repro_torch.kernels.contingency import ops, ref
+    from repro_torch.kernels.contingency import autotune, model, ops, ref
     from repro_torch.launch import reduce as reduce_cli
+    from repro_torch.launch import roofline
+
+    CARD.roofline, CARD.spec = roofline, roofline.device_spec("cuda")
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)   # no earlier tuning leaks in
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(AUTOTUNE_DIR / "autotune.json")
 
     lm = types.SimpleNamespace(  # the serving path's launch counters
         reset=lambda: (fa.reset_launch_counts(), rk.reset_launch_counts()),
@@ -2141,6 +2366,10 @@ def main() -> None:
     report["training"] = phase_training(torch, fa, rk, lm, smi)
     report["families"] = phase_families(torch, fa, lm, smi)
     report["families_cross"] = phase_families_cross(torch, smi)
+    report["tiles"] = phase_tiles(torch, ops, ref, autotune, model, engine, plar_reduce,
+                                  resolve_granularity, scaled_paper_dataset,
+                                  report["main_path"]["runs"], smi)
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
 
     top = N_BINS[-1]
     kernels = []
@@ -2161,6 +2390,13 @@ def main() -> None:
         }
         entry["service_launches"] = report["service"]["launches"][name]
         entry["mesh_launches"] = report["distributed"]["launches"][name]
+        tiles = report["tiles"]["kdd99"][next(k for k, v in TILE_KERNELS.items() if v == name)]
+        by_tiles = {tuple(r["tiles"]): r["ms"] for r in tiles["rows"]}
+        entry["tiles"] = tiles["picks"]
+        entry["tiles_ms"] = {sel: by_tiles[tuple(t)] for sel, t in tiles["picks"].items()}
+        entry["analytic_tiles"] = tiles["picks"]["analytic"]
+        entry["analytic_ms"] = entry["tiles_ms"]["analytic"]
+        entry["pinned_ms"] = entry["tiles_ms"]["pinned"]
         if name != "contingency":   # the Θ kernels: the shared segment kernels, and skewed r
             entry["headers"] = [SOURCES["segments"]]
             entry["ms_at_K"] = {str(r["K"]): r["ms"] for r in rows

@@ -114,7 +114,7 @@ def _host(a, dtype):
 
 
 def _eval_step(mesh, delta: str, n_bins: int, m: int, v_max: int, collective: str, *,
-               backend: str = "segment"):
+               backend: str = "segment", selector: Optional[str] = None):
     """This rank's step: candidates over 'model' × granules over data → thetas.
 
     Returns ``step(cand, r_ids, x, d, w, valid, n) -> [a_pad]`` where
@@ -123,7 +123,8 @@ def _eval_step(mesh, delta: str, n_bins: int, m: int, v_max: int, collective: st
     shard's Θ gathered over 'model', the same on every rank.
     ``backend="sweep_xla"`` (DESIGN.md §5.3) is the fused-pack formulation:
     ``packed [A_loc, G_loc]`` is never staged.  ``n_bins`` may be any §5.3
-    ladder rung ≥ K·V.
+    ladder rung ≥ K·V.  ``selector`` picks the fused kernel's launch shape
+    on each rank's own shard shape; no collective depends on it.
     """
     coll = _MeshColl(mesh)
     nm = mesh.n_model
@@ -144,7 +145,7 @@ def _eval_step(mesh, delta: str, n_bins: int, m: int, v_max: int, collective: st
 
             packed = (r_ids[None, :] * v_max + x_cand).contiguous()
             raw = fused_theta_raw(packed, d.to(torch.int32), _masked_w(w, valid),
-                                  delta=delta, n_bins=n_bins, n_dec=m)
+                                  delta=delta, n_bins=n_bins, n_dec=m, selector=selector)
             th = measures.theta_scale(delta, coll.psum_data(raw), n)
         else:
             if backend == "sweep_xla":
@@ -592,7 +593,8 @@ def plar_reduce_distributed(
                     obs.counter("plar_mesh_fused_iterations_total",
                                 "iterations of the fused schedule").inc()
 
-            ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective, backend=backend)
+            ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective, backend=backend,
+                            selector=selector)
             thetas = ev(cand, r_ids, gx, gd, gw, gvalid, n).cpu().numpy().astype(np.float64)
             thetas = thetas[: len(remaining)]
             n_evals += len(remaining)

@@ -30,10 +30,14 @@ iteration from Python.  This module keeps the whole reduction on the device:
   in one loop; each config freezes once its own condition is false, so its
   trajectory is its solo run's.
 
-The evaluation runs only the plain backends (:data:`DEVICE_BACKENDS`), as
-the JAX engine runs only its XLA ones; the CUDA Θ kernels stay on the host
-loop.  ``ladder=True`` is accepted and every body evaluates at the top rung
-``cap · v_max``: the sweep epilogue is bit-identical at every rung ≥ K·V
+``engine="auto"`` runs the plain backends (:data:`DEVICE_BACKENDS`) here, as
+the JAX engine runs only its XLA ones.  Asked for by name
+(``engine="device"``), the body also launches the CUDA kernels
+(:data:`KERNEL_BACKENDS`), whose launch shape is resolved once a runner
+(:func:`body_tiles`, outside the capture) and is part of the runner's key:
+a tuning persisted after a capture makes a new runner, captured anew, never
+a replay of the old tiles.  ``ladder=True`` is accepted and every body
+evaluates at the top rung ``cap · v_max``: the sweep epilogue is bit-identical at every rung ≥ K·V
 (DESIGN.md §5.3), and the recorded Θ history comes from the advance, which
 keeps the full bound on every path.  A device-side rung choice (JAX's
 ``lax.switch`` on ``st.k``) has no counterpart in a CUDA graph.
@@ -70,6 +74,7 @@ from .granularity import (
     presence_bitmap,
 )
 from .plan import (
+    SWEEP_BACKENDS,
     candidate_contingency,
     candidate_theta,
     contingency_from_ids,
@@ -88,6 +93,8 @@ __all__ = [
     "run_engine",
     "unpack_result",
     "DEVICE_BACKENDS",
+    "KERNEL_BACKENDS",
+    "body_tiles",
     "POLL_PERIOD",
     "EnsembleOperands",
     "init_ensemble_state",
@@ -101,9 +108,11 @@ __all__ = [
     "merge_candidate_cont",
 ]
 
-# Θ backends the engine runs: the plain ones, which the JAX package computes
-# in XLA.  The kernel backends (pallas/fused/sweep) stay on the host loop.
+# Θ backends engine="auto" runs here: the plain ones, which the JAX package
+# computes in XLA.  The kernel backends run here only when asked for by name.
 DEVICE_BACKENDS = ("segment", "onehot", "fused_xla", "sweep_xla")
+# the CUDA kernel backends, and the kernel each launches
+KERNEL_BACKENDS = {"pallas": "contingency", "fused": "fused", "sweep": "sweep"}
 
 # Measures of the stacked engine; each config's measure is static.
 ENSEMBLE_DELTAS = tuple(measures.RAW_ROWS)  # ("PR", "SCE", "LCE", "CCE")
@@ -229,6 +238,7 @@ class _Cfg:
     mp_chunk: int        # candidates evaluated per inner step (memory bound)
     ladder: bool = False  # accepted; every body evaluates at n_bins (see module doc)
     selector: str = "heuristic"
+    tiles: Tuple[int, ...] = ()  # the body's kernel launch shape (KERNEL_BACKENDS), else ()
 
     @property
     def n_bins(self) -> int:
@@ -458,16 +468,17 @@ def _eval_local(cfg, delta: str, st: SelectionState, op: _Operands) -> torch.Ten
         return _spark_thetas(delta, st.h1, st.h2, range(cfg.n_attrs), op.x, op.d, op.w,
                              st.active, op.n, n_bins=cfg.cap, m=cfg.m) + st.pr_correction
     chunks = []
+    tiles = cfg.tiles or None
     for cc in op.grid:
         x_cand = op.x_t.index_select(0, cc)                    # [nc, cap]
-        if cfg.backend == "sweep_xla":
+        if cfg.backend in SWEEP_BACKENDS:
             vals = candidate_theta(delta, None, op.d, op.w, st.active, op.n, n_bins=cfg.n_bins,
                                    m=cfg.m, backend=cfg.backend, x_t=x_cand, r_ids=st.r_ids,
-                                   v_max=cfg.v_max)
+                                   v_max=cfg.v_max, tiles=tiles)
         else:
             packed = st.r_ids[None, :] * cfg.v_max + x_cand
             vals = candidate_theta(delta, packed, op.d, op.w, st.active, op.n,
-                                   n_bins=cfg.n_bins, m=cfg.m, backend=cfg.backend)
+                                   n_bins=cfg.n_bins, m=cfg.m, backend=cfg.backend, tiles=tiles)
         chunks.append(vals)
     return torch.cat(chunks)[: cfg.n_attrs] + st.pr_correction
 
@@ -749,13 +760,32 @@ class _Loop:
 # ---------------------------------------------------------------------------
 
 
+def body_tiles(backend: str, delta: str, n_attrs: int, cap: int, m: int, v_max: int,
+               mp_chunk: int, selector: str, device=None) -> Tuple[int, ...]:
+    """The launch shape of the CUDA kernel a body launches, resolved for
+    ``device`` (the first candidate chunk's shape: every chunk takes it);
+    ``()`` for the plain backends, which launch none."""
+    kernel = KERNEL_BACKENDS.get(backend)
+    if kernel is None:
+        return ()
+    from repro_torch.kernels.contingency.autotune import resolve_tiles
+
+    return resolve_tiles(kernel, nc=max(min(int(mp_chunk), int(n_attrs)), 1), g=int(cap),
+                         n_bins=int(cap) * int(v_max), m=int(m), v_max=int(v_max),
+                         delta=str(delta), selector=selector, device=device)
+
+
 def _cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol, tie_tol, shrink, max_sel,
-             mp_chunk, ladder, selector):
+             mp_chunk, ladder, selector, tiles=(), device=None):
     # defaulted, keyword and positional calls, and numpy scalar arguments
-    # (np.int32 dims of a Granularity, np.bool_ flags), key identically
+    # (np.int32 dims of a Granularity, np.bool_ flags), key identically; the
+    # key holds the resolved tiles, so a body captured with other tiles is
+    # never replayed for these
+    if not tiles:
+        tiles = body_tiles(backend, delta, n_attrs, cap, m, v_max, mp_chunk, selector, device)
     return (str(delta), str(mode), str(backend), int(n_attrs), int(cap), int(m), int(v_max),
             float(tol), float(tie_tol), bool(shrink), int(max_sel), int(mp_chunk), bool(ladder),
-            str(selector))
+            str(selector), tuple(int(t) for t in tiles))
 
 
 class _EngineStep:
@@ -790,11 +820,13 @@ class _EngineRun:
 
 def make_engine_step(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
                      v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
-                     mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic"):
+                     mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic",
+                     tiles: Sequence[int] = (), device=None):
     """One greedy iteration (evaluate → argmin → advance), for inspection;
     ``make_engine_run`` loops the same body."""
     return _make_engine_step(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
-                                       tie_tol, shrink, max_sel, mp_chunk, ladder, selector))
+                                       tie_tol, shrink, max_sel, mp_chunk, ladder, selector,
+                                       tiles, device))
 
 
 @lru_cache(maxsize=None)
@@ -806,15 +838,19 @@ def _make_engine_step(*key):
 
 def make_engine_run(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
                     v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
-                    mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic"):
+                    mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic",
+                    tiles: Sequence[int] = (), device=None):
     """The full reduction as one device-resident loop (single process).
 
     Cached per normalized config: one runner, so one CUDA graph capture per
     config and device, whatever the data (operands are copied into the
-    runner's buffers on every call).
+    runner's buffers on every call).  A kernel backend's launch shape is
+    ``tiles``, or (empty) resolved by ``selector`` for ``device``
+    (:func:`body_tiles`); it is part of the config.
     """
     return _make_engine_run(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
-                                      tie_tol, shrink, max_sel, mp_chunk, ladder, selector))
+                                      tie_tol, shrink, max_sel, mp_chunk, ladder, selector,
+                                      tiles, device))
 
 
 @lru_cache(maxsize=None)
@@ -1036,6 +1072,7 @@ class _EnsCfg:
     mp_chunk: int
     ladder: bool = False
     selector: str = "heuristic"
+    tiles: Tuple[int, ...] = ()  # always (): the ensemble's backends launch no kernel
 
     @property
     def n_cfgs(self) -> int:

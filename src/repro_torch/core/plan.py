@@ -61,9 +61,10 @@ __all__ = [
 # are tile-for-tile alike.
 LADDER_TILE = 256
 
-# Tile/rung selection modes the drivers accept (the JAX package's
-# ``autotune.SELECTOR_MODES``).  The port's kernels use fixed Hopper tiles,
-# so the selector is validated and otherwise changes nothing.
+# Tile/rung selection modes the drivers accept: the kernels' own
+# (``kernels/contingency/autotune.SELECTOR_MODES``, which imports this
+# module's package and so cannot be imported here).  The selector picks the
+# CUDA kernels' launch shapes and, with ``analytic``, prunes the ladder.
 SELECTOR_MODES = ("heuristic", "analytic", "pinned")
 
 
@@ -79,11 +80,12 @@ def ladder_rungs(n_bins: int, tile: int = LADDER_TILE, *,
     trailing tile holds all-zero rows with θ' = 0, so results are bitwise
     equal at every rung ≥ K·V.
 
-    ``selector="analytic"`` keeps the full pow2 set here.  The JAX package
-    prunes it with its TPU cost model (``model.prune_ladder_rungs``); rungs
-    change speed, never bits, and pruning with H100 constants is a later
-    item of the roadmap (Hopper tile selection).  ``g`` and ``m`` are
-    accepted for that reason.
+    ``selector="analytic"`` with the granule count ``g`` and the decision
+    width ``m`` prunes the pow2 set by the modeled padding-vs-traffic
+    trade-off (``kernels/contingency/model.prune_ladder_rungs``, the JAX
+    package's function): the result is a subset closed over the exact top
+    rung, so rungs change speed, never bits, and it is JAX's ladder exactly.
+    Other selectors keep the full pow2 ladder.
     """
     rungs = []
     b = tile
@@ -91,6 +93,10 @@ def ladder_rungs(n_bins: int, tile: int = LADDER_TILE, *,
         rungs.append(b)
         b *= 2
     rungs.append(n_bins)
+    if selector == "analytic" and g is not None and m is not None:
+        from repro_torch.kernels.contingency.model import prune_ladder_rungs
+
+        return prune_ladder_rungs(rungs, int(g), int(m))
     return tuple(rungs)
 
 
@@ -183,10 +189,23 @@ def _cont_onehot(packed, d, w, valid, n_bins, m, *, bin_chunk: int = 512):
     return torch.cat(chunks, dim=1)[:, :n_bins, :]
 
 
-def _cont_kernel(packed, d, w, valid, n_bins, m):
+def _tile_kwargs(kernel: str, tiles: Optional[Sequence[int]]) -> dict:
+    """A kernel wrapper's tiling keywords from a tuple in the order of
+    ``model.TILE_FIELDS`` (``None``: the wrapper resolves them)."""
+    if tiles is None:
+        return {}
+    from repro_torch.kernels.contingency.model import TILE_FIELDS
+
+    if len(tiles) != len(TILE_FIELDS[kernel]):
+        raise ValueError(f"{kernel} tiles are {TILE_FIELDS[kernel]}, got {tuple(tiles)}")
+    return dict(zip(TILE_FIELDS[kernel], (int(t) for t in tiles)))
+
+
+def _cont_kernel(packed, d, w, valid, n_bins, m, selector=None, tiles=None):
     from repro_torch.kernels.contingency.ops import contingency as _kernel
 
-    return _kernel(packed, d, _masked_w(w, valid), n_bins=n_bins, n_dec=m)
+    return _kernel(packed, d, _masked_w(w, valid), n_bins=n_bins, n_dec=m, selector=selector,
+                   **_tile_kwargs("contingency", tiles))
 
 
 def _check_selector(selector: Optional[str]) -> None:
@@ -205,10 +224,13 @@ def candidate_contingency(
     m: int,
     backend: str = "segment",
     selector: Optional[str] = None,
+    tiles: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """counts[c, k, j] = Σ_g w_g · 1[packed[c,g] = k] · 1[d_g = j].
 
-    The paper's REDUCE phase for a batch of candidates at once.
+    The paper's REDUCE phase for a batch of candidates at once.  The
+    ``pallas`` backend's CUDA launch takes ``tiles`` (``(threads, ctas)``)
+    or resolves them with ``selector``.
     """
     _check_selector(selector)
     if backend == "segment":
@@ -216,7 +238,7 @@ def candidate_contingency(
     if backend == "onehot":
         return _cont_onehot(packed, d, w, valid, n_bins, m)
     if backend == "pallas":
-        return _cont_kernel(packed, d, w, valid, n_bins, m)
+        return _cont_kernel(packed, d, w, valid, n_bins, m, selector, tiles)
     raise ValueError(f"unknown contingency backend: {backend}")
 
 
@@ -280,6 +302,7 @@ def candidate_theta(
     r_ids: Optional[torch.Tensor] = None,
     v_max: Optional[int] = None,
     selector: Optional[str] = None,
+    tiles: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
     """Θ(D|B∪{a})[c] for a batch of candidates — the full MAP+REDUCE+sum.
 
@@ -288,7 +311,10 @@ def candidate_theta(
     epilogue into the accumulation.  The sweep backends take the read-once
     slab operands ``x_t [nc, G]`` + ``r_ids [G]`` + ``v_max`` instead of
     ``packed`` (pass ``packed=None``); ``n_bins`` may be any ladder rung
-    ≥ K·V with bitwise-identical results across rungs.
+    ≥ K·V with bitwise-identical results across rungs.  The CUDA backends
+    (``pallas``, ``fused``, ``sweep``) launch with ``tiles``, in the order
+    of ``model.TILE_FIELDS``, or resolve them with ``selector``; tiles never
+    change a bit.
     """
     _check_selector(selector)
     if backend in SWEEP_BACKENDS:
@@ -300,7 +326,8 @@ def candidate_theta(
             from repro_torch.kernels.contingency.ops import sweep_theta
 
             return sweep_theta(x_t, r_ids, d, _masked_w(w, valid), n, delta=delta,
-                               v_max=v_max, n_bins=n_bins, n_dec=m)
+                               v_max=v_max, n_bins=n_bins, n_dec=m, selector=selector,
+                               **_tile_kwargs("sweep", tiles))
         cont = sweep_contingency(x_t, r_ids, d, w, valid, v_max=v_max,
                                  n_bins=n_bins, m=m)
         return measures.theta_scale(delta, theta_tiled_raw(delta, cont), n)
@@ -308,7 +335,8 @@ def candidate_theta(
         from repro_torch.kernels.contingency.ops import fused_theta
 
         return fused_theta(packed, d, _masked_w(w, valid), n, delta=delta,
-                           n_bins=n_bins, n_dec=m)
+                           n_bins=n_bins, n_dec=m, selector=selector,
+                           **_tile_kwargs("fused", tiles))
     if backend == "fused_xla":
         cont = _cont_segment(packed, d, w, valid, n_bins, m)
         return measures.theta_scale(delta, theta_tiled_raw(delta, cont), n)
@@ -317,7 +345,7 @@ def candidate_theta(
             f"unknown Θ backend: {backend!r} "
             f"(one of: {', '.join(_THETA_BACKENDS)})")
     cont = candidate_contingency(packed, d, w, valid, n_bins=n_bins, m=m,
-                                 backend=backend)
+                                 backend=backend, selector=selector, tiles=tiles)
     return measures.evaluate(delta, cont, n)
 
 

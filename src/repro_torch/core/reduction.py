@@ -86,17 +86,15 @@ _MASK32 = 0xFFFFFFFF
 def _resolve_engine(engine: str, backend: str) -> str:
     """Validate the engine knob and resolve ``auto``.
 
-    ``auto`` prefers the device-resident engine (core/engine.py) and falls
-    back to the host loop only where the device engine cannot run: the CUDA
-    kernel backends (``pallas``/``fused``/``sweep``).
+    ``auto`` takes the device-resident engine (core/engine.py) for the plain
+    backends (:data:`DEVICE_BACKENDS`, JAX's rule) and the host loop for the
+    CUDA kernel backends (``pallas``/``fused``/``sweep``); ``device`` runs
+    either kind on the engine, a kernel backend's launch shape fixed once a
+    runner.
     """
     if engine not in _ENGINES:
         raise ValueError(
             f"unknown engine: {engine!r} (one of: {', '.join(_ENGINES)})")
-    if engine == "device" and backend not in DEVICE_BACKENDS:
-        raise ValueError(
-            f"engine='device' does not support backend={backend!r} "
-            f"(one of: {', '.join(DEVICE_BACKENDS)}); use engine='host'")
     if engine == "auto":
         return "device" if backend in DEVICE_BACKENDS else "host"
     return engine
@@ -320,7 +318,7 @@ def plar_reduce(
     mode: str = "incremental",          # "incremental" (optimized) | "spark" (paper-faithful)
     backend: str = "segment",           # segment|onehot|pallas|fused|fused_xla|sweep|sweep_xla
     ladder: bool = False,                # K-adaptive bin ladder (DESIGN.md §5.3)
-    selector: str = "analytic",          # validated; the port's kernels use fixed tiles
+    selector: str = "analytic",          # kernel tiles and ladder rungs: heuristic|analytic|pinned
     mp_chunk: int = 64,                  # model-parallelism level (paper Table 12 knob)
     grc_init: bool = True,               # paper Fig. 9 knob
     shrink: bool = False,                # FSPA universe shrinking
@@ -389,8 +387,8 @@ def plar_reduce(
         # core folds + greedy loop + stopping rule as one device-resident
         # loop (core/engine.py), one device→host transfer at the end
         reduct, theta_hist, iterations, ev, per_iter = run_engine(
-            make_engine_run(*dataclasses.astuple(cfg)), cap, A, gran.valid, gran.x, gran.d,
-            gran.w, n, theta_full, core, warm_start=warm)
+            make_engine_run(*dataclasses.astuple(cfg), device=dev), cap, A, gran.valid, gran.x,
+            gran.d, gran.w, n, theta_full, core, warm_start=warm)
         return ReductionResult(
             reduct=reduct,
             core=core,

@@ -2,8 +2,19 @@
 
 ``ops`` holds the wrappers (kernel on a CUDA tensor, plain version on a CPU
 tensor, with launch counters), ``ref`` the plain PyTorch versions, ``build``
-the ``nvcc`` build of ``csrc/``.
+the ``nvcc`` build of ``csrc/``, ``model`` the kernels' cost model on the
+card's figures and ``autotune`` the tile selector the wrappers resolve their
+launch shape through.
 """
+from .autotune import (
+    SELECTOR_MODES,
+    autotune_block_sizes,
+    autotune_cache_clear,
+    autotune_cache_info,
+    resolve_tiles,
+    select_block_sizes,
+)
+from .model import KernelCost, kernel_cost, modeled_time_s, rank_tiles
 from .ops import (
     LAUNCHES,
     contingency,
@@ -29,4 +40,14 @@ __all__ = [
     "sweep_theta",
     "sweep_theta_ref",
     "theta_scale",
+    "select_block_sizes",
+    "autotune_block_sizes",
+    "autotune_cache_clear",
+    "autotune_cache_info",
+    "resolve_tiles",
+    "SELECTOR_MODES",
+    "KernelCost",
+    "kernel_cost",
+    "modeled_time_s",
+    "rank_tiles",
 ]

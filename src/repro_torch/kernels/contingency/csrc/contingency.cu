@@ -10,7 +10,10 @@
 //
 // What bounds it on this card: writing the [nc, n_bins, n_dec] f32 output
 // (the wrapper's zero fill) and reading packed [nc, G]; the adds are one per
-// granule.  Counts are integer-valued f32 below 2^24 (DESIGN.md §3.1), so
+// granule.  The launch shape is the tiling's (kernels/contingency/
+// autotune.py, kernel "contingency"): `threads` a CTA and a grid of at most
+// `ctas` CTAs an SM, each striding over the (c, g) pairs (pinned: 256
+// and 64).  Counts are integer-valued f32 below 2^24 (DESIGN.md §3.1), so
 // the atomics' order cannot change a bit: the result equals the plain
 // scatter-add bit for bit.  Keys outside [0, n_bins) — the -1 padding
 // sentinel — and zero weights are skipped.
@@ -41,16 +44,22 @@ __global__ void contingency_kernel(const int* __restrict__ packed,
 
 }  // namespace
 
-// `out` must be zero-filled [nc, n_bins, n_dec] f32 on the stream's device.
+// `out` must be zero-filled [nc, n_bins, n_dec] f32 on the stream's device;
+// threads a multiple of 32 up to 1,024, ctas >= 1.
 extern "C" cudaError_t contingency_launch(const void* packed, const void* d,
                                           const void* w, void* out, int nc,
                                           int G, int n_bins, int n_dec,
-                                          void* stream) {
+                                          int threads, int ctas, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || ctas < 1)
+    return cudaErrorInvalidValue;
   const long long total = static_cast<long long>(nc) * G;
   if (total == 0) return cudaSuccess;
-  const int threads = 256;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long cap = static_cast<long long>(sms) * ctas;
   const long long want = (total + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 132LL * 64 ? want : 132LL * 64);
+  const int blocks = static_cast<int>(want < cap ? want : cap);
   contingency_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(packed), static_cast<const int*>(d),
       static_cast<const float*>(w), static_cast<float*>(out), nc, G, n_bins,

@@ -21,7 +21,7 @@
 // ordered list holds exactly the keys of candidate c in tile t; each tile
 // reads only its own:
 //
-// 1. count_kernel, one CTA per (granule chunk, candidate): keys per bucket,
+// 1. count_kernel, one CTA of `threads` per (key chunk, candidate): keys per bucket,
 //    aggregated per warp with __match_any_sync and per CTA in a shared-memory
 //    histogram of the candidate's tiles (when n_tiles·4 bytes fit in 48 KB;
 //    else straight into the global counts), so that K = 1, where every key
@@ -29,8 +29,9 @@
 // 2. plan_kernel, one CTA per candidate: exclusive scan of its counts into
 //    the candidate's range [c·G, c·G + G) of the ordered list; its segments
 //    into the work lists (segments of at most kShortMax keys, and chunks of
-//    at most `chunk` keys of the longer ones; list slots reserved with one
-//    atomic a round, so the lists' order varies and nothing depends on it);
+//    at most `chunk` keys of the longer ones, `chunk` at least the tiling's;
+//    list slots reserved with one atomic a round, so the lists' order varies
+//    and nothing depends on it);
 //    a +0 partial for each empty tile; the last live tile.
 // 3. scatter_kernel: each live key into its bucket's range as one int,
 //    g << 8 | (p - 256t) (warp-aggregated cursors; the order inside a bucket
@@ -51,6 +52,13 @@
 // The ordering costs a read of the keys for the counts, a read and a 4-byte
 // write a live key for the scatter, and a 4-byte read and the gathers of d
 // and w (and of the key, from G = 2^23) a live key for the tiles.
+// The launch shape is the tiling's (kernels/contingency/autotune.py, kernel
+// "fused"): `chunk`, the fewest keys of a long segment's chunk (pinned:
+// 4,096), and `threads`, the CTA of the count and scatter passes (instances
+// 128, 256, 512 and 1,024; pinned: 256), whose keys per CTA are at least
+// four a thread.  The segment kernels read one candidate a block (bc = 1)
+// through the BC = 4 instance, the pinned one.  No field changes a bit:
+// segments.cuh says why.
 // Built with --fmad=false; no fast math.
 #include <climits>
 
@@ -60,11 +68,10 @@ namespace {
 
 using repro::kTile;
 
-constexpr int kFlatThreads = 256;
 constexpr int kCountSmemBytes = 48 * 1024;  // a count CTA's tile histogram, when it fits
-constexpr int kMinChunk = 4096;     // keys per chunk of a long segment, at least
 constexpr int kMaxChunks = 512;     // the chunk keeps the split segments near this
-constexpr int kMinFlatChunk = 1024;  // keys per CTA of count_kernel / scatter_kernel, at least
+constexpr int kFlatKeysPerThread = 4;  // keys per CTA of count / scatter, at least, per thread
+constexpr int kBC = 4;              // the segment kernels' instance (one candidate a block)
 constexpr int kWideG = 1 << 23;     // from this G on, an entry is g alone (g << 8 overflows)
 
 __device__ __forceinline__ bool live(int p, int d, float w, int n_bins, int n_dec) {
@@ -97,11 +104,11 @@ struct FusedSource {
   static __device__ __forceinline__ int dec(const Entry& e) { return e.y; }
   __device__ __forceinline__ int tile(int seg) const { return seg % n_tiles; }
   __device__ __forceinline__ int first_cand(int seg, int, int) const { return seg / n_tiles; }
-  __device__ __forceinline__ void keys(const Entry& e, int, int, int,
-                                       int (&p)[repro::kMaxBC]) const {
+  template <int BC>
+  __device__ __forceinline__ void keys(const Entry& e, int, int, int, int (&p)[BC]) const {
     p[0] = e.x;
 #pragma unroll
-    for (int k = 1; k < repro::kMaxBC; ++k) p[k] = -1;
+    for (int k = 1; k < BC; ++k) p[k] = -1;
   }
 };
 
@@ -109,8 +116,8 @@ struct FusedSource {
 
 // counts[c·(n_tiles + 1) + t] += live keys of candidate c in tile t, over
 // the keys [blockIdx.x·chunk, +chunk) of candidate blockIdx.y.
-template <bool kShared>
-__global__ void __launch_bounds__(kFlatThreads)
+template <int THREADS, bool kShared>
+__global__ void __launch_bounds__(THREADS)
 count_kernel(const int* __restrict__ packed, const int* __restrict__ d,
              const float* __restrict__ w, int* __restrict__ counts, int G, int n_bins,
              int n_dec, int n_tiles, int chunk) {
@@ -244,7 +251,8 @@ plan_kernel(int* __restrict__ start, int* __restrict__ cursor, int G, int n_tile
 
 // Each live key into its bucket's range; then zero the split segments'
 // buffers and ticket counters that this launch will use.
-__global__ void __launch_bounds__(kFlatThreads)
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
 scatter_kernel(const int* __restrict__ packed, const int* __restrict__ d,
                const float* __restrict__ w, int* __restrict__ cursor,
                int* __restrict__ sorted, int G, int n_bins, int n_dec, int n_tiles, int chunk,
@@ -287,15 +295,17 @@ struct Plan {
 };
 
 // 0 bytes: the shapes do not fit (a tile's histogram past shared memory, or
-// nc·G past an int).
-Plan make_plan(int nc, int G, int n_bins, int n_dec, int smem_limit) {
+// nc·G past an int), or `chunk` is below 256 keys.
+Plan make_plan(int nc, int G, int n_bins, int n_dec, int chunk, int smem_limit) {
   Plan p{};
   const long long reads = static_cast<long long>(nc) * G;  // each live key in one segment
-  if (repro::candidates_per_block(1, n_dec, smem_limit) < 1 || reads > INT_MAX) return p;
+  if (repro::candidates_per_block(1, n_dec, smem_limit, 1) < 1 || reads > INT_MAX ||
+      chunk < kTile)
+    return p;
   p.n_tiles = (n_bins + kTile - 1) / kTile;
   const long long buckets = static_cast<long long>(nc) * p.n_tiles;
   const long long want = (reads + kMaxChunks - 1) / kMaxChunks;
-  p.chunk = static_cast<int>(std::max<long long>(kMinChunk, (want + kTile - 1) / kTile * kTile));
+  p.chunk = static_cast<int>(std::max<long long>(chunk, (want + kTile - 1) / kTile * kTile));
   p.split_cap = static_cast<int>(std::min<long long>(buckets, reads / p.chunk + 1));
   p.short_cap = buckets;
   p.long_cap = reads / p.chunk + std::min<long long>(buckets, reads / (repro::kShortMax + 1)) + 1;
@@ -315,7 +325,7 @@ Plan make_plan(int nc, int G, int n_bins, int n_dec, int smem_limit) {
   return p;
 }
 
-template <int DELTA>
+template <int DELTA, int THREADS>
 cudaError_t launch_delta(const int* packed, const int* d, const float* w, char* ws, float* raw,
                          int nc, int G, int n_bins, int n_dec, const Plan& p, int sms,
                          cudaStream_t stream) {
@@ -333,21 +343,24 @@ cudaError_t launch_delta(const int* packed, const int* d, const float* w, char* 
   // counters and counts lie first and together
   cudaError_t err = cudaMemsetAsync(ws, 0, p.off_cursor, stream);
   if (err != cudaSuccess) return err;
-  // keys per CTA of the flat kernels: about four CTAs an SM, and a shared
-  // histogram's flush amortized over at least as many keys as it has tiles
+  // keys per CTA of the flat kernels: about 1,024 threads an SM, and a
+  // shared histogram's flush amortized over at least as many keys as it has
+  // tiles (THREADS 256, pinned: four CTAs an SM and at least 1,024 keys)
   const bool shared_count = static_cast<long long>(p.n_tiles) * sizeof(int) <= kCountSmemBytes;
-  long long flat = (static_cast<long long>(nc) * G + 4LL * sms - 1) / (4LL * sms);
-  flat = std::max<long long>(flat, kMinFlatChunk);
+  const long long ctas = static_cast<long long>(sms) * (1024 / THREADS);
+  long long flat = (static_cast<long long>(nc) * G + ctas - 1) / ctas;
+  flat = std::max<long long>(flat, kFlatKeysPerThread * THREADS);
   if (shared_count) flat = std::max<long long>(flat, p.n_tiles);
-  flat = std::min<long long>((flat + 255) / 256 * 256, (G + 255) / 256 * 256);
-  const int flat_chunk = static_cast<int>(std::max<long long>(flat, 256));
+  flat = std::min<long long>((flat + THREADS - 1) / THREADS * THREADS,
+                             (static_cast<long long>(G) + THREADS - 1) / THREADS * THREADS);
+  const int flat_chunk = static_cast<int>(std::max<long long>(flat, THREADS));
   const dim3 flat_grid((G + flat_chunk - 1) / flat_chunk, nc);
   if (G > 0) {
     if (shared_count)
-      count_kernel<true><<<flat_grid, kFlatThreads, p.n_tiles * sizeof(int), stream>>>(
+      count_kernel<THREADS, true><<<flat_grid, THREADS, p.n_tiles * sizeof(int), stream>>>(
           packed, d, w, start, G, n_bins, n_dec, p.n_tiles, flat_chunk);
     else
-      count_kernel<false><<<flat_grid, kFlatThreads, 0, stream>>>(
+      count_kernel<THREADS, false><<<flat_grid, THREADS, 0, stream>>>(
           packed, d, w, start, G, n_bins, n_dec, p.n_tiles, flat_chunk);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -357,35 +370,51 @@ cudaError_t launch_delta(const int* packed, const int* d, const float* w, char* 
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const bool wide = G >= kWideG;
   if (G > 0) {  // with no keys no segment is split: nothing to zero
-    scatter_kernel<<<flat_grid, kFlatThreads, 0, stream>>>(
+    scatter_kernel<THREADS><<<flat_grid, THREADS, 0, stream>>>(
         packed, d, w, cursor, sorted, G, n_bins, n_dec, p.n_tiles, flat_chunk, counters,
         reinterpret_cast<float4*>(gbuf), static_cast<size_t>(kTile) * n_dec / 4, done, wide);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const repro::SegmentLists lists{short_items, long_items, counters, split_chunks, done, gbuf,
                                   nullptr, p.short_cap, p.long_cap};
-  return repro::launch_segments<DELTA>(FusedSource{sorted, packed, d, w, p.n_tiles, G, wide},
+  return repro::launch_segments<DELTA, kBC>(FusedSource{sorted, packed, d, w, p.n_tiles, G, wide},
                                        lists, partial, raw, nc,
                                        n_bins, n_dec, p.n_tiles, 1, 1, sms, stream);
 }
 
+template <int DELTA>
+cudaError_t launch_threads(const int* packed, const int* d, const float* w, char* ws, float* raw,
+                           int nc, int G, int n_bins, int n_dec, int threads, const Plan& p,
+                           int sms, cudaStream_t stream) {
+  switch (threads) {
+    case 128: return launch_delta<DELTA, 128>(packed, d, w, ws, raw, nc, G, n_bins, n_dec, p, sms, stream);
+    case 256: return launch_delta<DELTA, 256>(packed, d, w, ws, raw, nc, G, n_bins, n_dec, p, sms, stream);
+    case 512: return launch_delta<DELTA, 512>(packed, d, w, ws, raw, nc, G, n_bins, n_dec, p, sms, stream);
+    case 1024: return launch_delta<DELTA, 1024>(packed, d, w, ws, raw, nc, G, n_bins, n_dec, p, sms, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Bytes of scratch fused_theta_launch needs for these shapes (0: the shapes
-// do not fit a block's shared memory, or nc·G is past an int).
-extern "C" size_t fused_theta_workspace_bytes(int nc, int G, int n_bins, int n_dec) {
-  return make_plan(nc, G, n_bins, n_dec, repro::device_info().smem_limit).bytes;
+// Bytes of scratch fused_theta_launch needs for these shapes and this chunk
+// (0: the shapes do not fit a block's shared memory, nc·G is past an int,
+// or the chunk is below 256 keys).
+extern "C" size_t fused_theta_workspace_bytes(int nc, int G, int n_bins, int n_dec, int chunk) {
+  return make_plan(nc, G, n_bins, n_dec, chunk, repro::device_info().smem_limit).bytes;
 }
 
 // packed [nc, G], d [G] int32, w [G] f32, raw [nc] f32, workspace of
-// fused_theta_workspace_bytes(...) bytes (16-byte aligned); all on the
-// stream's device.  Requires nc >= 1, n_bins >= 1.
+// fused_theta_workspace_bytes(..., chunk) bytes (16-byte aligned); all on the
+// stream's device.  Requires nc >= 1, n_bins >= 1, threads in {128, 256,
+// 512, 1024}.
 extern "C" cudaError_t fused_theta_launch(const void* packed, const void* d, const void* w,
                                           void* workspace, void* raw, int nc, int G,
-                                          int n_bins, int n_dec, int delta, void* stream) {
+                                          int n_bins, int n_dec, int delta, int chunk,
+                                          int threads, void* stream) {
   if (nc < 1 || n_bins < 1 || n_dec < 1 || G < 0) return cudaErrorInvalidValue;
   const repro::Device dev = repro::device_info();
-  const Plan p = make_plan(nc, G, n_bins, n_dec, dev.smem_limit);
+  const Plan p = make_plan(nc, G, n_bins, n_dec, chunk, dev.smem_limit);
   if (p.bytes == 0) return cudaErrorInvalidValue;
   const auto* pk = static_cast<const int*>(packed);
   const auto* dd = static_cast<const int*>(d);
@@ -394,10 +423,10 @@ extern "C" cudaError_t fused_theta_launch(const void* packed, const void* d, con
   auto* out = static_cast<float*>(raw);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (delta) {
-    case repro::kPR: return launch_delta<repro::kPR>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, p, dev.sms, s);
-    case repro::kSCE: return launch_delta<repro::kSCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, p, dev.sms, s);
-    case repro::kLCE: return launch_delta<repro::kLCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, p, dev.sms, s);
-    case repro::kCCE: return launch_delta<repro::kCCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, p, dev.sms, s);
+    case repro::kPR: return launch_threads<repro::kPR>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, threads, p, dev.sms, s);
+    case repro::kSCE: return launch_threads<repro::kSCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, threads, p, dev.sms, s);
+    case repro::kLCE: return launch_threads<repro::kLCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, threads, p, dev.sms, s);
+    case repro::kCCE: return launch_threads<repro::kCCE>(pk, dd, ww, ws, out, nc, G, n_bins, n_dec, threads, p, dev.sms, s);
     default: return cudaErrorInvalidValue;
   }
 }

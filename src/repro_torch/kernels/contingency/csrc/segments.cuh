@@ -31,13 +31,22 @@
 //     int tile(int seg) const;                 // the 256-bin tile of a segment
 //     int first_cand(int seg, int cb, int bc) const;  // its first candidate
 //     // keys p - lo of a valid entry for candidates c0 .. c0 + nk - 1
-//     // (nk <= kMaxBC); a key outside [0, 256) is dropped by the caller
-//     void keys(const Entry&, int c0, int nk, int lo, int (&p)[kMaxBC]) const;
+//     // (nk <= BC); a key outside [0, 256) is dropped by the caller
+//     template <int BC>
+//     void keys(const Entry&, int c0, int nk, int lo, int (&p)[BC]) const;
 //   };
 //
 // An item of the work lists is int4 {segment, begin, end, split slot (-1:
 // not split)}; n_cb candidate blocks of bc candidates each read it.  A
 // (candidate, tile) partial is written by exactly one warp or CTA.
+//
+// The launch shape is the caller's (the tiling of kernels/contingency/
+// autotune.py): bc, the candidates that share one read of an entry, at most
+// the template's BC (instances 1, 2, 4 and 8), and the chunk of a long
+// segment, in the caller's work lists.  Neither changes a bit: a partial
+// is a function of its (candidate, tile) contingency alone (below).  The
+// 256-bin tile itself is not a knob: the plain versions and the ladder
+// share it.
 //
 // Every count is an integer-valued f32 below 2^24, so the order of the adds
 // that build it (atomics, merges, the order inside a segment) cannot change
@@ -60,7 +69,7 @@
 namespace repro {
 
 constexpr int kShortMax = 32;        // entries of a short segment: one a lane
-constexpr int kMaxBC = 4;            // candidates that share one read of an entry
+constexpr int kMaxBC = 8;            // the largest bc instance: a long CTA's 8 warps sum 8 tiles
 constexpr int kLongThreads = kTile;  // one thread per bin row in the dense epilogue
 constexpr int kShortThreads = 256;
 constexpr int kPlanThreads = 1024;
@@ -116,7 +125,7 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
 // segment's entry i.  Shared memory per warp: red[256] (row values; 0 where
 // no entry falls, restored after each candidate by the lanes that wrote it)
 // and, per lane, its weight, and its cell's term, count and decision.
-template <int DELTA, class Src>
+template <int DELTA, class Src, int BC>
 __global__ void __launch_bounds__(kShortThreads)
 short_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restrict__ counters,
                    float* __restrict__ partial, int nc, int n_bins, int n_dec, int n_tiles,
@@ -146,15 +155,15 @@ short_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restric
     const typename Src::Entry s = has ? src.load(item.y + lane) : Src::none();
     const float wg = Src::weight(s);
     const int dg = Src::dec(s);
-    int pk[kMaxBC];
+    int pk[BC];
     if (has) {
       src.keys(s, c0, nk, lo, pk);
     } else {
 #pragma unroll
-      for (int k = 0; k < kMaxBC; ++k) pk[k] = -1;
+      for (int k = 0; k < BC; ++k) pk[k] = -1;
     }
 #pragma unroll
-    for (int k = 0; k < kMaxBC; ++k) {
+    for (int k = 0; k < BC; ++k) {
       if (k >= nk) break;  // warp-uniform
       const int c = c0 + k;
       const int p = pk[k];
@@ -209,7 +218,7 @@ short_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restric
 // One CTA of kLongThreads per (chunk of a long segment, candidate block).
 // Shared memory: hist[bc][256 * n_dec], red[bc][256].  A split segment's
 // buffer in gbuf is bc histograms at ((slot·n_cb + cb)·bc)·256·n_dec.
-template <int DELTA, class Src>
+template <int DELTA, class Src, int BC>
 __global__ void __launch_bounds__(kLongThreads)
 long_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restrict__ counters,
                   const int* __restrict__ split_chunks, int* __restrict__ done,
@@ -243,14 +252,14 @@ long_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restrict
         const int i = i0 + u * kLongThreads;
         s[u] = i < item.z ? src.load(i) : Src::none();
       }
-      int p[kUnroll][kMaxBC];
+      int p[kUnroll][BC];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (Src::valid(s[u])) {
           src.keys(s[u], c0, nk, lo, p[u]);
         } else {
 #pragma unroll
-          for (int k = 0; k < kMaxBC; ++k) p[u][k] = -1;
+          for (int k = 0; k < BC; ++k) p[u][k] = -1;
         }
       }
 #pragma unroll
@@ -259,7 +268,7 @@ long_tiles_kernel(Src src, const int4* __restrict__ items, const int* __restrict
         const float wg = Src::weight(s[u]);
         const int dg = Src::dec(s[u]);
 #pragma unroll
-        for (int k = 0; k < kMaxBC; ++k) {
+        for (int k = 0; k < BC; ++k) {
           if (k < nk && static_cast<unsigned>(p[u][k]) < static_cast<unsigned>(nb))
             atomicAdd(&hist[k * hsize + p[u][k] * n_dec + dg], wg);
         }
@@ -351,11 +360,11 @@ inline Device device_info() {
   return d;
 }
 
-// Candidates a long-path CTA holds in shared memory: at most kMaxBC and nc;
+// Candidates a long-path CTA holds in shared memory: at most bc and nc;
 // 0 when one [256, n_dec] histogram does not fit.
-inline int candidates_per_block(int nc, int n_dec, int smem_limit) {
+inline int candidates_per_block(int nc, int n_dec, int smem_limit, int bc) {
   const int per_cand = (kTile * n_dec + kTile) * static_cast<int>(sizeof(float));
-  return std::min(std::min(kMaxBC, nc), smem_limit / per_cand);
+  return std::min(std::min(bc, nc), smem_limit / per_cand);
 }
 
 // CTAs of `kernel` an SM holds at this block size and dynamic shared memory,
@@ -399,13 +408,13 @@ struct SegmentLists {
   long long short_cap, long_cap;
 };
 
-// The short tiles, the long tiles, then the ordered sum into raw [nc].
-template <int DELTA, class Src>
+// The short tiles, the long tiles, then the ordered sum into raw [nc]; bc <= BC.
+template <int DELTA, int BC, class Src>
 cudaError_t launch_segments(const Src& src, const SegmentLists& l, float* partial, float* raw,
                             int nc, int n_bins, int n_dec, int n_tiles, int bc, int n_cb,
                             int sms, cudaStream_t stream) {
-  const auto short_kernel = short_tiles_kernel<DELTA, Src>;
-  const auto long_kernel = long_tiles_kernel<DELTA, Src>;
+  const auto short_kernel = short_tiles_kernel<DELTA, Src, BC>;
+  const auto long_kernel = long_tiles_kernel<DELTA, Src, BC>;
   const int long_smem = bc * (kTile * n_dec + kTile) * static_cast<int>(sizeof(float));
   const int short_per_sm = blocks_per_sm(reinterpret_cast<const void*>(short_kernel), kShortThreads, 0);
   const int long_per_sm = blocks_per_sm(reinterpret_cast<const void*>(long_kernel), kLongThreads, long_smem);

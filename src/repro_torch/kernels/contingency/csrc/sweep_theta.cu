@@ -39,6 +39,13 @@
 //
 // No result depends on the order inside a bucket; segments.cuh says why a
 // tile's partial is the same bits on every run and at every ladder rung.
+//
+// The launch shape is the tiling's (kernels/contingency/autotune.py, kernel
+// "sweep"): `bc`, the candidates a segment entry is read for at once (1, 2,
+// 4 or 8, and at most nc and what one long CTA's histograms fit in shared
+// memory; pinned: 4); `chunk`, the fewest granules of a long tile's chunk
+// (pinned: 4,096); `threads`, the CTA of the count and scatter passes, with
+// 2,048 / threads CTAs an SM (pinned: 256).  No field changes a bit.
 // Built with --fmad=false; no fast math.
 #include "segments.cuh"
 
@@ -47,7 +54,6 @@ namespace {
 using repro::kTile;
 
 constexpr int kMaxSplit = 64;      // bounds the tiles cut into several chunks
-constexpr int kMinChunk = 4096;    // granules per chunk of a long tile, at least
 
 __device__ __forceinline__ bool live(int r, int d, float w, int n_cls, int n_dec) {
   return r >= 0 && r < n_cls && d >= 0 && d < n_dec && w != 0.f;
@@ -79,14 +85,15 @@ struct SweepSource {
   static __device__ __forceinline__ int dec(const Entry& e) { return e.z; }
   __device__ __forceinline__ int tile(int seg) const { return seg; }
   __device__ __forceinline__ int first_cand(int, int cb, int bc) const { return cb * bc; }
+  template <int BC>
   __device__ __forceinline__ void keys(const Entry& e, int c0, int nk, int lo,
-                                       int (&p)[repro::kMaxBC]) const {
-    int x[repro::kMaxBC];
+                                       int (&p)[BC]) const {
+    int x[BC];
 #pragma unroll
-    for (int k = 0; k < repro::kMaxBC; ++k)
+    for (int k = 0; k < BC; ++k)
       x[k] = k < nk ? x_t[static_cast<size_t>(c0 + k) * G + e.x] : 0;
 #pragma unroll
-    for (int k = 0; k < repro::kMaxBC; ++k) p[k] = e.y * V + x[k] - lo;
+    for (int k = 0; k < BC; ++k) p[k] = e.y * V + x[k] - lo;
   }
 };
 
@@ -238,8 +245,11 @@ struct Plan {
       off_done, off_live, off_gbuf, off_partial, bytes;
 };
 
-Plan make_plan(int nc, int G, int V, int n_bins, int n_dec, int smem_limit) {
+// p.bc = 0: one [256, n_dec] histogram does not fit, bc is not an instance,
+// or chunk is below 256 granules.
+Plan make_plan(int nc, int G, int V, int n_bins, int n_dec, int bc, int chunk, int smem_limit) {
   Plan p{};
+  if ((bc != 1 && bc != 2 && bc != 4 && bc != 8) || chunk < kTile) return p;
   p.n_cls = (n_bins + V - 1) / V;
   p.n_tiles = (n_bins + kTile - 1) / kTile;
   p.n_keys = 2 * p.n_tiles;
@@ -248,11 +258,11 @@ Plan make_plan(int nc, int G, int V, int n_bins, int n_dec, int smem_limit) {
   // (S + 1)·G granules in all; the chunk keeps the split tiles below kMaxSplit
   const long long reads = static_cast<long long>(p.S + 1) * G;
   const long long want = (reads + kMaxSplit - 1) / kMaxSplit;
-  p.chunk = static_cast<int>(std::max<long long>(kMinChunk, (want + kTile - 1) / kTile * kTile));
+  p.chunk = static_cast<int>(std::max<long long>(chunk, (want + kTile - 1) / kTile * kTile));
   p.split_cap = static_cast<int>(std::min<long long>(p.n_tiles, reads / p.chunk + 1));
   p.long_cap = static_cast<int>(std::min<long long>(
       p.n_tiles + reads / p.chunk + 1, reads / (repro::kShortMax + 1) + reads / p.chunk + 1));
-  p.bc = repro::candidates_per_block(nc, n_dec, smem_limit);
+  p.bc = repro::candidates_per_block(nc, n_dec, smem_limit, bc);
   p.n_cb = p.bc > 0 ? (nc + p.bc - 1) / p.bc : 0;
   size_t off = 0;
   auto take = [&off](size_t bytes) { const size_t at = off; off = repro::align16(off + bytes); return at; };
@@ -271,10 +281,10 @@ Plan make_plan(int nc, int G, int V, int n_bins, int n_dec, int smem_limit) {
   return p;
 }
 
-template <int DELTA>
+template <int DELTA, int BC>
 cudaError_t launch_delta(const int* x_t, const int* r, const int* d, const float* w,
                          char* ws, float* raw, int nc, int G, int V, int n_bins,
-                         int n_dec, const Plan& p, int sms, cudaStream_t stream) {
+                         int n_dec, const Plan& p, int threads, int sms, cudaStream_t stream) {
   int* counters = reinterpret_cast<int*>(ws + p.off_counters);
   int* start = reinterpret_cast<int*>(ws + p.off_start);
   int* cursor = reinterpret_cast<int*>(ws + p.off_cursor);
@@ -289,9 +299,9 @@ cudaError_t launch_delta(const int* x_t, const int* r, const int* d, const float
 
   cudaError_t err = cudaMemsetAsync(start, 0, (static_cast<size_t>(p.n_keys) + 1) * sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  const int flat_blocks = std::max(1, std::min((G + 255) / 256, sms * 8));
+  const int flat_blocks = std::max(1, std::min((G + threads - 1) / threads, sms * (2048 / threads)));
   if (G > 0) {
-    count_kernel<<<flat_blocks, 256, 0, stream>>>(r, d, w, start, G, p.n_cls, V, n_dec);
+    count_kernel<<<flat_blocks, threads, 0, stream>>>(r, d, w, start, G, p.n_cls, V, n_dec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   plan_kernel<<<1, repro::kPlanThreads, 0, stream>>>(start, cursor, p.n_keys, p.n_tiles, p.S,
@@ -299,35 +309,54 @@ cudaError_t launch_delta(const int* x_t, const int* r, const int* d, const float
                                                      split_chunks, tile_live, counters);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t slot_words4 = static_cast<size_t>(p.n_cb) * p.bc * kTile * n_dec / 4;
-  scatter_kernel<<<flat_blocks, 256, 0, stream>>>(
+  scatter_kernel<<<flat_blocks, threads, 0, stream>>>(
       r, d, w, cursor, sorted, G, p.n_cls, V, n_dec, counters,
       reinterpret_cast<float4*>(gbuf), slot_words4, done, p.n_cb);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const repro::SegmentLists lists{short_items, long_items, counters, split_chunks, done, gbuf,
                                   tile_live, p.n_tiles, p.long_cap};
-  return repro::launch_segments<DELTA>(SweepSource{x_t, sorted, G, V}, lists, partial, raw, nc,
+  return repro::launch_segments<DELTA, BC>(SweepSource{x_t, sorted, G, V}, lists, partial, raw, nc,
                                        n_bins, n_dec, p.n_tiles, p.bc, p.n_cb, sms, stream);
+}
+
+template <int DELTA>
+cudaError_t launch_bc(const int* x_t, const int* r, const int* d, const float* w, char* ws,
+                      float* raw, int nc, int G, int V, int n_bins, int n_dec, int bc,
+                      const Plan& p, int threads, int sms, cudaStream_t stream) {
+  switch (bc) {
+    case 1: return launch_delta<DELTA, 1>(x_t, r, d, w, ws, raw, nc, G, V, n_bins, n_dec, p, threads, sms, stream);
+    case 2: return launch_delta<DELTA, 2>(x_t, r, d, w, ws, raw, nc, G, V, n_bins, n_dec, p, threads, sms, stream);
+    case 4: return launch_delta<DELTA, 4>(x_t, r, d, w, ws, raw, nc, G, V, n_bins, n_dec, p, threads, sms, stream);
+    case 8: return launch_delta<DELTA, 8>(x_t, r, d, w, ws, raw, nc, G, V, n_bins, n_dec, p, threads, sms, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Bytes of scratch sweep_theta_launch needs for these shapes (0: the shapes
-// do not fit a block's shared memory).
-extern "C" size_t sweep_theta_workspace_bytes(int nc, int G, int v_max, int n_bins, int n_dec) {
-  const Plan p = make_plan(nc, G, v_max, n_bins, n_dec, repro::device_info().smem_limit);
+// Bytes of scratch sweep_theta_launch needs for these shapes and this tiling
+// (0: the shapes do not fit a block's shared memory, or the tiling is not
+// one the kernel has).
+extern "C" size_t sweep_theta_workspace_bytes(int nc, int G, int v_max, int n_bins, int n_dec,
+                                              int bc, int chunk) {
+  const Plan p = make_plan(nc, G, v_max, n_bins, n_dec, bc, chunk,
+                           repro::device_info().smem_limit);
   return p.bc > 0 ? p.bytes : 0;
 }
 
 // x_t [nc, G], r_ids/d [G] int32, w [G] f32, raw [nc] f32, workspace of
-// sweep_theta_workspace_bytes(...) bytes (16-byte aligned); all on the
-// stream's device.  Requires nc >= 1, n_bins >= 1, v_max >= 1.
+// sweep_theta_workspace_bytes(..., bc, chunk) bytes (16-byte aligned); all
+// on the stream's device.  Requires nc >= 1, n_bins >= 1, v_max >= 1, bc in
+// {1, 2, 4, 8}, threads a multiple of 32 that divides 2,048.
 extern "C" cudaError_t sweep_theta_launch(const void* x_t, const void* r_ids, const void* d,
                                           const void* w, void* workspace, void* raw, int nc,
                                           int G, int v_max, int n_bins, int n_dec, int delta,
-                                          void* stream) {
+                                          int bc, int chunk, int threads, void* stream) {
   if (nc < 1 || n_bins < 1 || v_max < 1 || n_dec < 1 || G < 0) return cudaErrorInvalidValue;
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || 2048 % threads != 0)
+    return cudaErrorInvalidValue;
   const repro::Device dev = repro::device_info();
-  const Plan p = make_plan(nc, G, v_max, n_bins, n_dec, dev.smem_limit);
+  const Plan p = make_plan(nc, G, v_max, n_bins, n_dec, bc, chunk, dev.smem_limit);
   if (p.bc < 1) return cudaErrorInvalidValue;
   const auto* xt = static_cast<const int*>(x_t);
   const auto* r = static_cast<const int*>(r_ids);
@@ -337,10 +366,10 @@ extern "C" cudaError_t sweep_theta_launch(const void* x_t, const void* r_ids, co
   auto* out = static_cast<float*>(raw);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (delta) {
-    case repro::kPR: return launch_delta<repro::kPR>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, p, dev.sms, s);
-    case repro::kSCE: return launch_delta<repro::kSCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, p, dev.sms, s);
-    case repro::kLCE: return launch_delta<repro::kLCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, p, dev.sms, s);
-    case repro::kCCE: return launch_delta<repro::kCCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, p, dev.sms, s);
+    case repro::kPR: return launch_bc<repro::kPR>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, bc, p, threads, dev.sms, s);
+    case repro::kSCE: return launch_bc<repro::kSCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, bc, p, threads, dev.sms, s);
+    case repro::kLCE: return launch_bc<repro::kLCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, bc, p, threads, dev.sms, s);
+    case repro::kCCE: return launch_bc<repro::kCCE>(xt, r, dd, ww, ws, out, nc, G, v_max, n_bins, n_dec, bc, p, threads, dev.sms, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,11 +9,18 @@ Each wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a run can show that it went through the kernels.
 Callers see the logical ``[nc, n_bins, n_dec]`` (contingency) or the
 normalized ``[nc]`` Θ (fused, sweep) — the JAX package's wrapper contracts.
+
+Each wrapper takes its kernel's tiling as keywords (the fields of
+:data:`.model.TILE_FIELDS`: ``threads``/``ctas``, ``chunk``/``threads``,
+``bc``/``chunk``/``threads``) and ``selector=``; a field left ``None`` is
+resolved by :func:`.autotune.resolve_tiles` for the launch's card, in plain
+Python before the launch, so a CUDA graph that captures the launch holds
+the tiles it was given.  The plain version needs no tiling and ignores it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,10 +28,13 @@ from repro_torch.core.measures import theta_scale
 
 from .. import build
 from ..launching import on_cpu as _on_cpu, stream as _stream
+from .autotune import SELECTOR_MODES, resolve_tiles
+from .model import TILE_FIELDS
 from .ref import contingency_ref, fused_theta_raw_ref, sweep_theta_ref
 
 __all__ = ["LAUNCHES", "contingency", "fused_theta", "fused_theta_raw", "sweep_theta",
-           "reset_launch_counts", "launch_counts", "theta_scale"]
+           "launch_tiles", "reset_launch_counts", "launch_counts", "resolve_tiles",
+           "theta_scale"]
 
 LAUNCHES: Dict[str, int] = {"contingency": 0, "fused_theta": 0, "sweep_theta": 0}
 
@@ -33,11 +43,11 @@ _TILE = 256  # bins per CTA of the Θ kernels (plan.LADDER_TILE)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    "contingency": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_theta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sweep_theta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "contingency": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fused_theta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sweep_theta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
-_WORKSPACE_ARGTYPES = {"fused_theta": [_I, _I, _I, _I], "sweep_theta": [_I, _I, _I, _I, _I]}
+_WORKSPACE_ARGTYPES = {"fused_theta": [_I] * 5, "sweep_theta": [_I] * 7}
 
 
 def reset_launch_counts() -> None:
@@ -66,8 +76,9 @@ def _workspace(lib, name: str, *shape: int) -> torch.Tensor:
         size.restype = ctypes.c_size_t
     nbytes = size(*shape)
     if nbytes == 0:
-        raise ValueError(f"{name}: shapes {shape} do not fit the kernel (a 256-bin tile's "
-                         f"histogram past shared memory, or too many granules)")
+        raise ValueError(f"{name}: shapes and tiling {shape} do not fit the kernel (a 256-bin "
+                         f"tile's histogram past shared memory, too many granules, or a "
+                         f"tiling the kernel has no instance of)")
     return torch.empty((nbytes,), dtype=torch.uint8, device=torch.cuda.current_device())
 
 
@@ -83,6 +94,27 @@ def _check_delta(delta: str) -> int:
     if delta not in _DELTA_CODE:
         raise ValueError(f"unknown measure: {delta}")
     return _DELTA_CODE[delta]
+
+
+def _check_selector(selector: Optional[str]) -> None:
+    if selector is not None and selector not in SELECTOR_MODES:
+        raise ValueError(
+            f"unknown tile selector: {selector!r} (one of: {', '.join(SELECTOR_MODES)})")
+
+
+def launch_tiles(kernel: str, given: Sequence[Optional[int]], *, selector: Optional[str],
+                 device, nc: int, g: int, n_bins: int, m: int, v_max: int = 1,
+                 delta: str = "SCE") -> Tuple[int, ...]:
+    """The tiling a launch takes: the ``given`` fields (in the order of
+    :data:`.model.TILE_FIELDS`), each ``None`` filled from
+    :func:`.autotune.resolve_tiles` for ``device``."""
+    if len(given) != len(TILE_FIELDS[kernel]):
+        raise ValueError(f"{kernel} tiles are {TILE_FIELDS[kernel]}, got {tuple(given)}")
+    if all(v is not None for v in given):
+        return tuple(int(v) for v in given)
+    resolved = resolve_tiles(kernel, nc=nc, g=g, n_bins=n_bins, m=m, v_max=v_max,
+                             delta=delta, selector=selector, device=device)
+    return tuple(r if v is None else int(v) for v, r in zip(given, resolved))
 
 
 def _check_smem(name: str, n_dec: int, device: torch.device) -> None:
@@ -102,8 +134,15 @@ def contingency(
     *,
     n_bins: int,
     n_dec: int,
+    threads: Optional[int] = None,
+    ctas: Optional[int] = None,
+    selector: Optional[str] = None,
 ) -> torch.Tensor:
-    """counts[c, k, j] = Σ_g w_g · 1[packed[c,g]=k] · 1[d_g=j]."""
+    """counts[c, k, j] = Σ_g w_g · 1[packed[c,g]=k] · 1[d_g=j].
+
+    Tiling: ``threads`` a CTA and at most ``ctas`` CTAs an SM.
+    """
+    _check_selector(selector)
     if _on_cpu("contingency", packed=packed, d=d, w=w):
         return contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
     packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
@@ -112,11 +151,13 @@ def contingency(
     nc, g = packed.shape
     if d.shape != (g,) or w.shape != (g,):
         raise ValueError(f"contingency: d/w must be [{g}], got {tuple(d.shape)}, {tuple(w.shape)}")
+    threads, ctas = launch_tiles("contingency", (threads, ctas), selector=selector,
+                                 device=packed.device, nc=nc, g=g, n_bins=n_bins, m=n_dec)
     out = torch.zeros((nc, n_bins, n_dec), dtype=torch.float32, device=packed.device)
     with torch.cuda.device(packed.device):
         lib, fn = _launcher("contingency")
         err = fn(packed.data_ptr(), d.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 nc, g, n_bins, n_dec, _stream(packed.device))
+                 nc, g, n_bins, n_dec, threads, ctas, _stream(packed.device))
         build.check(lib, err, "contingency kernel launch")
     LAUNCHES["contingency"] += 1
     return out
@@ -130,6 +171,9 @@ def fused_theta_raw(
     delta: str,
     n_bins: int,
     n_dec: int,
+    chunk: Optional[int] = None,
+    threads: Optional[int] = None,
+    selector: Optional[str] = None,
 ) -> torch.Tensor:
     """The unnormalized Θ'[c] of :func:`fused_theta`: the kernel's own output.
 
@@ -137,8 +181,10 @@ def fused_theta_raw(
     ``fused`` schedule) are summed first and scaled once with
     :func:`theta_scale`, so Θ_PR stays an integer-exact count sum and one
     division across shard counts.  The plain version is
-    :func:`.ref.fused_theta_raw_ref`.
+    :func:`.ref.fused_theta_raw_ref`.  Tiling: long segments in chunks of at
+    least ``chunk`` keys, ``threads`` a CTA of the count and scatter passes.
     """
+    _check_selector(selector)
     if _on_cpu("fused_theta", packed=packed, d=d, w=w):
         return fused_theta_raw_ref(packed, d, w, delta=delta, n_bins=n_bins, n_dec=n_dec)
     packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
@@ -155,11 +201,13 @@ def fused_theta_raw(
     raw = torch.empty((nc,), dtype=torch.float32, device=dev)
     if nc == 0:
         return raw
+    chunk, threads = launch_tiles("fused", (chunk, threads), selector=selector, device=dev,
+                                  nc=nc, g=g, n_bins=n_bins, m=n_dec, delta=delta)
     with torch.cuda.device(dev):
         lib, fn = _launcher("fused_theta")
-        workspace = _workspace(lib, "fused_theta", nc, g, n_bins, n_dec)
+        workspace = _workspace(lib, "fused_theta", nc, g, n_bins, n_dec, chunk)
         err = fn(packed.data_ptr(), d.data_ptr(), w.data_ptr(), workspace.data_ptr(),
-                 raw.data_ptr(), nc, g, n_bins, n_dec, code, _stream(dev))
+                 raw.data_ptr(), nc, g, n_bins, n_dec, code, chunk, threads, _stream(dev))
         build.check(lib, err, "fused_theta kernel launch")
     LAUNCHES["fused_theta"] += 1
     return raw
@@ -174,6 +222,9 @@ def fused_theta(
     delta: str,
     n_bins: int,
     n_dec: int,
+    chunk: Optional[int] = None,
+    threads: Optional[int] = None,
+    selector: Optional[str] = None,
 ) -> torch.Tensor:
     """Θ(D|B∪{a})[c] without materializing the [nc, K, m] contingency.
 
@@ -187,7 +238,8 @@ def fused_theta(
     allocates.  The kernel's raw output is :func:`fused_theta_raw`.
     """
     return theta_scale(delta, fused_theta_raw(packed, d, w, delta=delta, n_bins=n_bins,
-                                              n_dec=n_dec), n)
+                                              n_dec=n_dec, chunk=chunk, threads=threads,
+                                              selector=selector), n)
 
 
 def sweep_theta(
@@ -201,6 +253,10 @@ def sweep_theta(
     v_max: int,
     n_bins: int,
     n_dec: int,
+    bc: Optional[int] = None,
+    chunk: Optional[int] = None,
+    threads: Optional[int] = None,
+    selector: Optional[str] = None,
 ) -> torch.Tensor:
     """Θ(D|R∪{a})[c] from the read-once slab operands (DESIGN.md §5.3).
 
@@ -214,8 +270,10 @@ def sweep_theta(
     tile reads only its own segment (``csrc/sweep_theta.cu``; the plain
     version of that ordering is :func:`.ref.tile_segments`).  The ordering
     is scratch of the launch: it lives in one workspace tensor the wrapper
-    allocates.
+    allocates.  Tiling: ``bc`` candidates read an entry at once (1, 2, 4, 8),
+    then the fused kernel's ``chunk`` and ``threads``.
     """
+    _check_selector(selector)
     if _on_cpu("sweep_theta", x_t=x_t, r_ids=r_ids, d=d, w=w):
         return sweep_theta_ref(x_t, r_ids, d, w, n, delta=delta, v_max=v_max,
                                n_bins=n_bins, n_dec=n_dec)
@@ -233,12 +291,15 @@ def sweep_theta(
     raw = torch.empty((nc,), dtype=torch.float32, device=dev)
     if nc == 0:
         return theta_scale(delta, raw, n)
+    bc, chunk, threads = launch_tiles("sweep", (bc, chunk, threads), selector=selector,
+                                      device=dev, nc=nc, g=g, n_bins=n_bins, m=n_dec,
+                                      v_max=v_max, delta=delta)
     with torch.cuda.device(dev):
         lib, fn = _launcher("sweep_theta")
-        workspace = _workspace(lib, "sweep_theta", nc, g, v_max, n_bins, n_dec)
+        workspace = _workspace(lib, "sweep_theta", nc, g, v_max, n_bins, n_dec, bc, chunk)
         err = fn(x_t.data_ptr(), r_ids.data_ptr(), d.data_ptr(), w.data_ptr(),
                  workspace.data_ptr(), raw.data_ptr(), nc, g, v_max, n_bins, n_dec, code,
-                 _stream(dev))
+                 bc, chunk, threads, _stream(dev))
         build.check(lib, err, "sweep_theta kernel launch")
     LAUNCHES["sweep_theta"] += 1
     return theta_scale(delta, raw, n)

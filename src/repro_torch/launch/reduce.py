@@ -62,8 +62,10 @@ def _parser() -> argparse.ArgumentParser:
                          "sweep_xla, host for the kernel backends")
     ap.add_argument("--selector", default="analytic",
                     choices=["heuristic", "analytic", "pinned"],
-                    help="tile / ladder-rung selection; the port's kernels use "
-                         "fixed tiles, so it is validated only")
+                    help="the CUDA kernels' launch shape and the ladder's rungs: "
+                         "analytic = the Hopper cost model (a tuning persisted in "
+                         "$REPRO_TORCH_AUTOTUNE_CACHE wins), heuristic = a shape "
+                         "rule, pinned = the kernels' earlier fixed tiles")
     ap.add_argument("--shrink", action="store_true",
                     help="FSPA universe shrinking (drop pure classes)")
     ap.add_argument("--mp-chunk", type=int, default=64)

@@ -45,6 +45,13 @@ schedule's identity, at kdd99 shapes), and a world of one NCCL rank (mesh
 engine capturing its body with the collectives in it; the adapter's NCCL
 reduce_scatter runs eagerly and captured, and ``engine="auto"`` takes the
 host loop where the device engine's working set does not fit the card.
+
+Tile selection on the card: every feasible tiling of each kernel
+(``model.feasible_tiles``) gives the plain version's bits (the contingency
+and Θ_PR; Θ_SCE the same bits across tilings, within the tolerance above of
+the plain version), with long split segments and short ones, at n_dec 2
+and 23; and the sweep kernel inside the device engine's captured body is
+captured anew, not replayed, once a persisted tuning changes its tiles.
 """
 import numpy as np
 import pytest
@@ -634,3 +641,85 @@ def test_mesh_auto_engine_fits_the_card(nccl_world):
     assert _resolve_engine("auto", "all_reduce", mesh, 41, 5_000_000, 10, 23) == "host"
     assert _resolve_engine("auto", "fused", mesh, 41, 131_072, 10, 23) == "host"
     assert _resolve_engine("device", "all_reduce", mesh, 41, 5_000_000, 10, 23) == "device"
+
+
+# ---------------------------------------------------------------------------
+# tile selection: every tiling gives the plain bits; a body's tiles key its runner
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 300])
+@pytest.mark.parametrize("n_dec", [2, 23])
+@pytest.mark.parametrize("kernel", ["contingency", "fused", "sweep"])
+def test_every_feasible_tiling_gives_the_plain_bits(cuda_device, kernel, n_dec, k):
+    """Every feasible tiling (``model.feasible_tiles``) at a small shape, its
+    segments long and split (k = 1: every granule in one class) or short
+    (k = 300): the contingency and Θ_PR bit-equal to the plain version, Θ_SCE
+    bit-equal across the tilings and within rtol = 1e-5, atol =
+    1e-6·max|plain| of the plain version (its within-tile sum order)."""
+    from repro_torch.kernels.contingency import model
+
+    x_t, r, d, w = _operands(cuda_device, 40 + k, nc=9, g=20_000, v=10, k=k, m=n_dec)
+    n_bins = 12_000
+    packed = (r[None, :] * 10 + x_t).contiguous()
+    n = float(w.sum())
+    tilings = model.feasible_tiles(kernel, 9, 20_000, n_bins, n_dec)
+    assert len(tilings) > 1
+    if kernel == "contingency":
+        want = ref.contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
+        for threads, ctas in tilings:
+            got = ops.contingency(packed, d, w, n_bins=n_bins, n_dec=n_dec, threads=threads,
+                                  ctas=ctas)
+            assert torch.equal(got, want), (threads, ctas)
+        return
+    for delta in ("PR", "SCE"):
+        if kernel == "fused":
+            want = ref.fused_theta_ref(packed, d, w, n, delta=delta, n_bins=n_bins, n_dec=n_dec)
+            run = lambda t: ops.fused_theta(packed, d, w, n, delta=delta, n_bins=n_bins,  # noqa: E731
+                                            n_dec=n_dec, chunk=t[0], threads=t[1])
+        else:
+            want = ref.sweep_theta_ref(x_t, r, d, w, n, delta=delta, v_max=10, n_bins=n_bins,
+                                       n_dec=n_dec)
+            run = lambda t: ops.sweep_theta(x_t, r, d, w, n, delta=delta, v_max=10,  # noqa: E731
+                                            n_bins=n_bins, n_dec=n_dec, bc=t[0], chunk=t[1],
+                                            threads=t[2])
+        first = None
+        for tiles in tilings:
+            got = run(tiles)
+            first = got if first is None else first
+            assert torch.equal(got, first), (delta, tiles)
+            if delta == "PR":
+                assert torch.equal(got, want), tiles
+            else:
+                scale = float(want.abs().max())
+                assert torch.allclose(got, want, rtol=1e-5, atol=1e-6 * scale), tiles
+
+
+def test_engine_body_with_other_tiles_is_captured_anew(cuda_device, tmp_path, monkeypatch):
+    """The sweep kernel in the device engine's captured body: a tuning
+    persisted after the capture gives the next run another runner, captured
+    anew with the new tiles (never a replay of the old ones), and both runs
+    give the host loop's answer."""
+    from repro_torch.kernels.contingency import autotune, model
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.autotune_cache_clear(disk=True)
+    x, d = _engine_table(5)
+    kw = dict(delta="PR", backend="sweep", grc_init=False, device=cuda_device)
+    host = plar_reduce(x, d, engine="host", **kw)
+    ops.reset_launch_counts()
+    r1 = plar_reduce(x, d, engine="device", **kw)
+    assert ops.launch_counts()["sweep_theta"] > 0
+    args = ("PR", "incremental", "sweep", 10, 3000, 3, 4, 1e-6, 1e-5, False, 10, 64)
+    first = engine.make_engine_run(*args, device=cuda_device)
+    assert first.loop.captures == 1
+    other = next(t for t in model.feasible_tiles("sweep", 10, 3000, 12_000, 3)
+                 if t != first.cfg.tiles)
+    autotune._disk_put(autotune._disk_key(autotune.platform_of(cuda_device), "sweep",
+                                          autotune.shape_bucket(10, 3000, 12_000, 3)), other)
+    r2 = plar_reduce(x, d, engine="device", **kw)
+    second = engine.make_engine_run(*args, device=cuda_device)
+    assert second is not first and second.cfg.tiles == other
+    assert (first.loop.captures, second.loop.captures) == (1, 1)
+    assert _same(r1, host) and _same(r2, host)
+    autotune.autotune_cache_clear(disk=True)

@@ -134,9 +134,13 @@ def test_engine_auto_resolution_and_validation():
     assert r_kern.n_evaluations == j_plar(x, d, delta="SCE", engine="host").n_evaluations
     with pytest.raises(ValueError, match="unknown engine"):
         t_plar(x, d, engine="gpu", device=CPU)
+    # engine="device" runs a kernel backend on the engine (auto never does):
+    # the host loop's reduct and Θ history, bit for bit
+    host = t_plar(x, d, delta="SCE", engine="host", device=CPU)
     for backend in ("pallas", "fused", "sweep"):
-        with pytest.raises(ValueError, match="engine='device'.*engine='host'"):
-            t_plar(x, d, backend=backend, engine="device", device=CPU)
+        r = t_plar(x, d, delta="SCE", backend=backend, engine="device", device=CPU)
+        assert (r.reduct, r.core, r.theta_history) == (host.reduct, host.core,
+                                                        host.theta_history), backend
 
 
 def test_unknown_mode_and_backend_raise():

@@ -161,8 +161,10 @@ def test_granularity_carried_from_jax():
 
 def test_driver_validation():
     x, d = _random_table(3, 60, 5)
-    with pytest.raises(ValueError, match="engine='device' does not support backend='sweep'"):
-        t_plar(x, d, engine="device", backend="sweep", device=CPU)
+    # a kernel backend on the device engine (by name only) is the host loop's run
+    dev = t_plar(x, d, engine="device", backend="sweep", device=CPU)
+    host = t_plar(x, d, engine="host", backend="sweep", device=CPU)
+    assert (dev.reduct, dev.theta_history) == (host.reduct, host.theta_history)
     with pytest.raises(ValueError, match="unknown engine"):
         t_plar(x, d, engine="warp", device=CPU)
     with pytest.raises(ValueError, match="unknown Θ backend"):
@@ -240,15 +242,19 @@ def test_cli_ensemble_matches_jax_cli(capsys, monkeypatch):
 
 
 def test_port_exports_every_reference_name():
-    """``repro_torch.core`` and ``repro_torch.service`` export every name the
-    JAX package's ``repro.core`` and ``repro.service`` list in ``__all__``,
-    and each exported name resolves."""
+    """``repro_torch.core``, ``repro_torch.service`` and
+    ``repro_torch.kernels.contingency`` export every name the JAX package's
+    ``repro.core``, ``repro.service`` and ``repro.kernels.contingency`` list
+    in ``__all__``, and each exported name resolves."""
     import repro.core
+    import repro.kernels.contingency
     import repro.service
     import repro_torch.core
+    import repro_torch.kernels.contingency
     import repro_torch.service
 
-    for ref, port in ((repro.core, repro_torch.core), (repro.service, repro_torch.service)):
+    for ref, port in ((repro.core, repro_torch.core), (repro.service, repro_torch.service),
+                      (repro.kernels.contingency, repro_torch.kernels.contingency)):
         missing = sorted(set(ref.__all__) - set(port.__all__))
         assert not missing, f"{port.__name__} lacks {missing}"
         for name in port.__all__:
@@ -256,7 +262,8 @@ def test_port_exports_every_reference_name():
 
 
 def test_port_imports_no_jax_or_repro(tmp_path):
-    """Importing and running the port (reductions, the reduct service with
+    """Importing and running the port (reductions, the tile selector, its
+    cost model and the roofline, the reduct service with
     one query served through a CPU ``ReductServer``, LM serving of every
     family (the dense, RWKV6, MoE and Mamba-hybrid engines, a VLM prefill
     with frontend features, an enc-dec prefill and decode), one reduced
@@ -275,6 +282,8 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "import repro_torch.core.oracle, repro_torch.launch.mesh\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.contingency\n"
         "import repro_torch.core.engine, repro_torch.launch.time_engine\n"
+        "import repro_torch.kernels.contingency.autotune, repro_torch.kernels.contingency.model\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.time_tiles\n"
         "import repro_torch.launch.reduce, repro_torch.data, repro_torch.obs\n"
         "from repro_torch.core import plar_reduce, plar_reduce_ensemble\n"
         "rng = np.random.default_rng(0)\n"
@@ -283,6 +292,9 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "for b in ('segment', 'sweep', 'fused', 'pallas'):\n"
         "    plar_reduce(x, d, delta='SCE', backend=b, device='cpu')\n"
         "plar_reduce(x, d, delta='PR', engine='device', mode='spark', device='cpu')\n"
+        "plar_reduce(x, d, backend='sweep', engine='device', selector='heuristic', device='cpu')\n"
+        "from repro_torch.kernels.contingency import autotune_block_sizes\n"
+        "autotune_block_sizes(2, 64, 16, 2, kernel='sweep', v_max=4, refine=True, top_k=2)\n"
         "plar_reduce_ensemble(x, d, configs=['PR', 'SCE'], seeds=[0], device='cpu')\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.convert, repro_torch.launch.serve\n"
@@ -346,6 +358,7 @@ def test_port_imports_no_jax_or_repro(tmp_path):
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), src])
     env["OMP_NUM_THREADS"] = "1"
+    env["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp_path / "autotune.json")
     p = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
