@@ -40,7 +40,7 @@ is missing.  Phases, each printing one JSON line:
    every kernel's launch count > 0 in that phase; then a small input
    (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
-   ``{"ok": true, "device": {...}}`` (after phases 6-15).
+   ``{"ok": true, "device": {...}}`` (after phases 6-17).
 
 The LM serving slice adds:
 
@@ -249,13 +249,37 @@ start and removed at its end, so no earlier tuning leaks in):
     (host loop) and on ``segment`` (device engine), after clearing the
     tunings (b) persisted: the reduct and the Θ_PR history equal phase 4's.
 
+The paper slice adds, after phase 16 (before the ``kernels`` line):
+
+17. paper: (a) the five tables of ``repro_torch.launch.paper_tables``
+    (``table_6_9``, ``table_10``, ``table_11``, ``table_12``, ``fig_9``) at
+    JAX's defaults on ``segment``, and ``table_6_9`` again on ``sweep``
+    (each asserts HAR, FSPA and PLAR select the same subset), every row
+    printed; (b) the full sdss stand-in (320,000 x 5,201, ``v_max`` 8, 17
+    classes; never cut in width, any cut in rows printed as ``reduced``
+    with its reason): ``table_11``'s configuration on ``sweep`` (SCE,
+    ``max_features`` 1, lanes 32 and 128, the second run timed), then the
+    table granulated once on the card and one whole greedy PR reduction
+    (``compute_core=False``, host loop) on ``segment`` (the plain answer,
+    first), ``sweep``, ``fused`` and ``pallas``: reducts equal, Θ_PR
+    histories bit-equal, each kernel launched by its run; prints
+    ``granulate_s``, ``elapsed_s``, iterations, launches and peak device
+    memory; (c) the dry-run cell's shard steps
+    (``repro_torch.launch.dryrun.run_plar_cell(..., execute=True)``, one pod
+    and two: 20,480 and 10,240 x 326, n_bins 512, SCE) on a world of one
+    NCCL rank: ``all_reduce``, ``reduce_scatter``, the fused-pack form and
+    the ``fused`` schedule (which must launch the fused-Θ kernel), each Θ
+    equal to the solo evaluation, the records printed (device ms, the
+    median of 7, beside the modelled terms).
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
 RWKV6's prefill at B = 1, T = 2,048 (its top-level numbers) and decode at
 B = 4, T = 1 (``paths``), launches from phase 7.  The three Θ kernels'
 entries also carry ``service_launches``, their launches in phase 11, and
-``mesh_launches``, their launches in phase 12; flash and RWKV6 carry
+``mesh_launches``, their launches in phase 12, and ``sdss_launches``,
+their launches in the sdss reductions of phase 17 (b); flash and RWKV6 carry
 ``train_launches``, their launches in phase 13 (b) and (c), and
 ``train_ms`` / ``train_plain_ms``, forward + backward of the differentiable
 wrapper and of the plain version's autograd at the shapes of 13 (a).
@@ -279,6 +303,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -358,6 +383,11 @@ TILES_SMALL = dict(nc=9, G=20_000, n_bins=12_000, V=10, n_decs=(2, 23), Ks=(1, 3
 TILES_REPS = 5      # phase 16 (b): repeats of 10 calls, and calls a CUDA graph holds
 TILE_KERNELS = {"contingency": "contingency", "fused": "fused_theta", "sweep": "sweep_theta"}
 AUTOTUNE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_autotune"
+SDSS = dict(rows=320_000, attrs=5_201, classes=17, reduced=None,  # phase 17 (b): full size
+            backends=("segment", "sweep", "fused", "pallas"))  # segment (the answer) first:
+                                                               # it pays the first run's costs
+DRYRUN_FORMS = [("all_reduce", False), ("reduce_scatter", False), ("all_reduce", True),
+                ("fused", False)]   # phase 17 (c): (collective, fused_pack)
 MESH_RUNS = [  # (delta, collective, engine) of phase 12 on the kdd99 granularity
     ("PR", "all_reduce", "host"), ("PR", "all_reduce", "device"),
     ("PR", "reduce_scatter", "host"), ("PR", "reduce_scatter", "device"),
@@ -781,7 +811,6 @@ def phase_service(torch, obs, ops, x, d, stream, card: str) -> dict:
     four backends and a stacked window, a merge during a capture, a
     checkpoint and restart, and shard recovery."""
     import asyncio
-    import tempfile
 
     from repro_torch.core import engine, plar_reduce
     from repro_torch.core.guard import device_guard
@@ -1062,8 +1091,6 @@ def phase_distributed(torch, obs, ops, x, d, main_runs, card: str) -> dict:
     """The mesh driver in this process: a world of one NCCL rank, mesh
     (1, 1), on phase 4's kdd99 granularity and on its 5,000,000 x 41
     table; every answer held against phase 4's ``sweep`` runs."""
-    import tempfile
-
     import torch.distributed as dist
 
     from repro_torch.core import resolve_granularity
@@ -2294,6 +2321,141 @@ def phase_tiles(torch, ops, ref, autotune, model, engine, plar_reduce, resolve_g
     return out
 
 
+def _paper_tables(torch, paper_tables, card: str) -> dict:
+    """(a) The five tables at JAX's defaults on ``segment``; ``table_6_9``
+    also on ``sweep``.  Each row printed, with its table and backend."""
+    out = {}
+    runs = [(name, "segment") for name in paper_tables.ALL_TABLES] + [("table_6_9", "sweep")]
+    for name, backend in runs:
+        t0 = time.perf_counter()
+        rows = paper_tables.ALL_TABLES[name](device="cuda", backend=backend)
+        seconds = time.perf_counter() - t0
+        for row in rows:
+            emit({"phase": "paper_table", "table": name, "backend": backend, "card": card,
+                  **row})
+        out[f"{name}/{backend}"] = {"rows": rows, "seconds": seconds}
+    return out
+
+
+def _sdss_table_11(torch, paper_tables, card: str) -> dict:
+    """``table_11``'s configuration at the full sdss stand-in, on ``sweep``."""
+    t0 = time.perf_counter()
+    rows = paper_tables.table_11(max_rows=SDSS["rows"], max_attrs=SDSS["attrs"],
+                                 device="cuda", backend="sweep")
+    out = {"rows": rows, "seconds": time.perf_counter() - t0, "backend": "sweep",
+           "table": [SDSS["rows"], SDSS["attrs"]]}
+    emit({"phase": "paper_sdss_table_11", "card": card, **out})
+    return out
+
+
+def _sdss_reductions(torch, ops, plar_reduce, resolve_granularity, scaled_paper_dataset,
+                     card: str) -> dict:
+    """One whole greedy PR reduction of the full sdss stand-in on each
+    kernel backend and on ``segment`` (the plain-PyTorch answer)."""
+    x, d = scaled_paper_dataset("sdss", max_rows=SDSS["rows"], max_attrs=SDSS["attrs"]).table()
+    if list(x.shape) != [SDSS["rows"], SDSS["attrs"]] or int(d.max()) + 1 != SDSS["classes"]:
+        raise AssertionError(f"sdss table {list(x.shape)}, {int(d.max()) + 1} classes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gran = resolve_granularity(x, d, device="cuda")
+    granules, capacity = int(gran.num), gran.capacity
+    torch.cuda.synchronize()
+    granulate_s = time.perf_counter() - t0
+    granulate_peak = torch.cuda.max_memory_allocated()
+    del x, d
+    runs = []
+    for backend in SDSS["backends"]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = plar_reduce(source=gran, delta="PR", backend=backend, engine="host",
+                        compute_core=False, device="cuda")
+        torch.cuda.synchronize()
+        run = dict(backend=backend, engine="host", reduct=r.reduct, iterations=r.iterations,
+                   theta_full=r.theta_full, theta_history=r.theta_history,
+                   evaluations=r.n_evaluations, elapsed_s=r.elapsed_s,
+                   wall_s=time.perf_counter() - t0,
+                   per_iteration_s=r.per_iteration_s,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   launches=ops.launch_counts())
+        if not all(math.isfinite(v) for v in r.theta_history + [r.theta_full]):
+            raise AssertionError(f"non-finite Θ in the sdss {backend} run")
+        emit({"phase": "paper_sdss", "card": card, "table": [SDSS["rows"], SDSS["attrs"]],
+              "granules": granules, "capacity": capacity, "granulate_s": granulate_s,
+              "reduced": SDSS["reduced"], **run})
+        runs.append(run)
+    del gran
+    torch.cuda.empty_cache()
+    plain = runs[0]
+    for run in runs[1:]:
+        if run["reduct"] != plain["reduct"]:
+            raise AssertionError(f"sdss reduct on {run['backend']} {run['reduct']} != "
+                                 f"segment's {plain['reduct']}")
+        if run["theta_history"] != plain["theta_history"]:
+            raise AssertionError(f"sdss Θ_PR history on {run['backend']} differs from segment's")
+    kernel_of = {"sweep": "sweep_theta", "fused": "fused_theta", "pallas": "contingency"}
+    launches = {kernel_of[r["backend"]]: r["launches"][kernel_of[r["backend"]]]
+                for r in runs if r["backend"] in kernel_of}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched by its sdss run")
+    out = dict(table=[SDSS["rows"], SDSS["attrs"]], granules=granules, capacity=capacity,
+               granulate_s=granulate_s, granulate_peak=granulate_peak, runs=runs,
+               launches=launches, reduced=SDSS["reduced"])
+    emit({"phase": "paper_sdss_check", "card": card, "reducts_equal": True,
+          "theta_pr_bit_equal": True, "launches": launches, "granulate_s": granulate_s,
+          "granulate_peak": granulate_peak, "reduced": SDSS["reduced"]})
+    return out
+
+
+def _dryrun_steps(torch, ops, card: str) -> dict:
+    """(c) The dry-run cell's shard steps, one pod and two, on a world of one
+    NCCL rank: every evaluation form, and the fused schedule's kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_process_group
+    from repro_torch.launch import dryrun
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_")) / "store"
+    init_process_group("cuda", rank=0, world_size=1, store_path=str(store), timeout_s=300)
+    records = []
+    try:
+        for mesh_kind in ("single", "multi"):
+            for collective, fused_pack in DRYRUN_FORMS:
+                rec = dryrun.run_plar_cell(mesh_kind, collective=collective,
+                                           fused_pack=fused_pack, execute=True, device="cuda")
+                emit({"phase": "paper_dryrun", "card": card, **rec})
+                if rec["status"] != "ok":
+                    raise AssertionError(f"dry-run {mesh_kind}/{collective}: {rec.get('reason')}")
+                if collective == "fused" and rec["executed"]["launches"]["fused_theta"] <= 0:
+                    raise AssertionError("the fused dry-run step launched no fused-Θ kernel")
+                records.append(rec)
+    finally:
+        dist.destroy_process_group()
+    return {"records": records}
+
+
+def phase_paper(torch, ops, plar_reduce, resolve_granularity, scaled_paper_dataset,
+                card: str) -> dict:
+    """Phase 17: the paper's tables, the full sdss stand-in on every Θ
+    backend, and the dry-run cell's shard steps."""
+    from repro_torch.launch import paper_tables
+
+    t0 = time.perf_counter()
+    out = {"tables": _paper_tables(torch, paper_tables, card)}
+    print(card, flush=True)
+    out["sdss_table_11"] = _sdss_table_11(torch, paper_tables, card)
+    out["sdss"] = _sdss_reductions(torch, ops, plar_reduce, resolve_granularity,
+                                   scaled_paper_dataset, card)
+    print(card, flush=True)
+    out["dryrun"] = _dryrun_steps(torch, ops, card)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "paper_done", "card": card, "seconds": out["seconds"]})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the full report here (JSON)")
@@ -2309,6 +2471,8 @@ def main() -> None:
     if not (src / "repro_torch" / "__init__.py").is_file():
         fail(f"the port is missing: no {src / 'repro_torch'} beside this script")
     sys.path.insert(0, str(src))
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tempfile.tempdir = scratch.name   # every phase's temporary files; removed at exit
 
     from repro_torch import obs
     from repro_torch.core import engine, plar_reduce, plar_reduce_ensemble, resolve_granularity
@@ -2369,6 +2533,8 @@ def main() -> None:
     report["tiles"] = phase_tiles(torch, ops, ref, autotune, model, engine, plar_reduce,
                                   resolve_granularity, scaled_paper_dataset,
                                   report["main_path"]["runs"], smi)
+    report["paper"] = phase_paper(torch, ops, plar_reduce, resolve_granularity,
+                                  scaled_paper_dataset, smi)
     shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
 
     top = N_BINS[-1]
@@ -2390,6 +2556,7 @@ def main() -> None:
         }
         entry["service_launches"] = report["service"]["launches"][name]
         entry["mesh_launches"] = report["distributed"]["launches"][name]
+        entry["sdss_launches"] = report["paper"]["sdss"]["launches"][name]
         tiles = report["tiles"]["kdd99"][next(k for k, v in TILE_KERNELS.items() if v == name)]
         by_tiles = {tuple(r["tiles"]): r["ms"] for r in tiles["rows"]}
         entry["tiles"] = tiles["picks"]
@@ -2447,6 +2614,8 @@ def main() -> None:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1, default=str))
+    scratch.cleanup()
+    tempfile.tempdir = None
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card, "count": count}})

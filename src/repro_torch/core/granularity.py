@@ -30,6 +30,7 @@ Porting traps, named where they bite:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -136,13 +137,28 @@ def dyn_column_terms(x: torch.Tensor, col: torch.Tensor, seed: int) -> torch.Ten
     return _mul32(_mix32(_as_u32(x_col) ^ seeds[0]), seeds[1])
 
 
+# int64 cells one hashing temporary may hold (512 MiB).  The hash of a wide
+# table is summed over column blocks of this many cells: at 320,000 x 5,201
+# (sdss) one unblocked temporary is 13 GB, and the mix takes several.
+_HASH_BLOCK_CELLS = 1 << 26
+
+
 def row_fingerprints(x: torch.Tensor, seed: int) -> torch.Tensor:
-    """Linear polynomial fingerprint of each row (int64 holding a uint32)."""
+    """Linear polynomial fingerprint of each row (int64 holding a uint32).
+
+    Summed over blocks of columns: the terms' int64 sum is exact, so the
+    blocks give the unblocked sum's bits.
+    """
     n_cols = x.shape[-1]
     seeds = torch.as_tensor(_column_seeds(n_cols, seed), device=x.device)
-    terms = _mul32(_mix32(_as_u32(x) ^ seeds[0]), seeds[1])
+    rows = max(x.numel() // max(n_cols, 1), 1)
+    step = max(1, _HASH_BLOCK_CELLS // rows)
     # each term < 2³², so the int64 column sum cannot overflow below 2³¹ columns
-    return terms.sum(dim=-1) & _MASK32
+    acc = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
+    for lo in range(0, n_cols, step):
+        s = seeds[:, lo:lo + step]
+        acc = acc + _mul32(_mix32(_as_u32(x[..., lo:lo + step]) ^ s[0]), s[1]).sum(dim=-1)
+    return acc & _MASK32
 
 
 @dataclasses.dataclass
@@ -234,8 +250,11 @@ def _sort_keys(x, d, valid, exact: bool, seed: int):
     if exact:
         # Primary: fingerprints (cheap bucketing); within buckets, the actual
         # columns break hash collisions, making the grouping collision-free.
-        cols = [torch.where(valid, _as_u32(x[:, j]), sentinel) for j in range(x.shape[1])]
-        keys = tuple(cols[::-1]) + (du, h2, h1)  # last key = primary
+        # Each column key is made when the sort chain reaches it: all of them
+        # at once are [n, A] int64 (13 GB at sdss's 320,000 x 5,201).
+        cols = (torch.where(valid, _as_u32(x[:, j]), sentinel)
+                for j in reversed(range(x.shape[1])))
+        keys = itertools.chain(cols, (du, h2, h1))  # last key = primary
     else:
         keys = (du, h2, h1)
     return lexsort(keys), (h1, h2, du)

@@ -106,9 +106,16 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    bq: int = 128,
+    bkv: int = 128,
+    interpret: bool = True,
 ) -> torch.Tensor:
     """Forward attention with GQA, causal / sliding-window masks aligned to
-    the sequence end, f32 online softmax; output in q's dtype."""
+    the sequence end, f32 online softmax; output in q's dtype.
+    ``bq``, ``bkv`` (the TPU kernel's query and key blocks) are accepted and
+    ignored: the CUDA kernels fix their own tiles.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
+    """
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
     if on_cpu("flash_attention", q=q, k=k, v=v):
@@ -166,18 +173,25 @@ class _FlashAttentionDiff(torch.autograd.Function):
 
 def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None, bq: int = 128, bkv: int = 128,
+                         interpret: bool = True) -> torch.Tensor:
     """Differentiable :func:`flash_attention`: the kernel's forward (the plain
-    version on CPU tensors), the backward of :func:`.ref.attention_ref`."""
+    version on CPU tensors), the backward of :func:`.ref.attention_ref`.
+    ``bq``, ``bkv`` (the TPU kernel's query and key blocks) are accepted and
+    ignored: the CUDA kernels fix their own tiles.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
+    """
     return _FlashAttentionDiff.apply(q, k, v, causal, window, scale)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
         window: Optional[int] = None, scale: Optional[float] = None,
-        impl: str = "pallas") -> torch.Tensor:
+        impl: str = "pallas", interpret: bool = True) -> torch.Tensor:
     """Multi-head attention [B, H, S, Dh] with GQA kv broadcast, by JAX's
     implementation names: ``"pallas"`` the kernel (differentiable, through
-    :func:`flash_attention_diff`), ``"xla"`` the plain version."""
+    :func:`flash_attention_diff`), ``"xla"`` the plain version.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
+    """
     if impl == "pallas":
         return flash_attention_diff(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "xla":

@@ -35,7 +35,7 @@ from ..launching import on_cpu, stream
 from .ref import rwkv6_chunked_ref, rwkv6_ref
 
 __all__ = ["CHUNK", "HEAD_DIMS", "LAUNCHES", "chunk_split", "column_split",
-           "launch_counts", "reset_launch_counts", "rwkv6", "rwkv6_diff"]
+           "launch_counts", "reset_launch_counts", "rwkv6", "rwkv6_diff", "rwkv6_scan"]
 
 LAUNCHES: Dict[str, int] = {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}
 HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernels' compiled head widths
@@ -86,12 +86,46 @@ def rwkv6(
     w: torch.Tensor,  # decay in (0, 1)
     u: torch.Tensor,  # [H, D] f32
     init_state: Optional[torch.Tensor] = None,  # [B, H, D, D] f32
+    *,
+    impl: str = "pallas",
+    chunk: int = 128,
+    interpret: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RWKV6 recurrence over [B, H, T, D]; returns (o, final state).
 
+    ``impl`` has JAX's meaning: ``"pallas"`` the kernel (the plain version
+    on CPU tensors), ``"xla"`` the plain version :func:`.ref.rwkv6_ref`.
     On the card, T < :data:`CHUNK` takes the decode kernel and T >=
     :data:`CHUNK` the chunked kernel.
+    ``chunk`` (the TPU kernel's time block) is accepted and ignored: the
+    CUDA chunk length is :data:`CHUNK`, compiled in.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
     """
+    if impl == "xla":
+        return rwkv6_ref(r, k, v, w, u, init_state)
+    if impl != "pallas":
+        raise ValueError(f"unknown rwkv6 impl: {impl}")
+    return _rwkv6_kernel(r, k, v, w, u, init_state)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, init_state: Optional[torch.Tensor] = None, *,
+               chunk: int = 128, interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw kernel entry, with JAX's signature: the CUDA kernels of
+    ``csrc/rwkv6.cu`` on CUDA tensors.  A raw kernel entry has no plain
+    fallback, so CPU tensors raise (:func:`rwkv6` takes them).
+    ``chunk`` (the TPU kernel's time block) is accepted and ignored: the
+    CUDA chunk length is :data:`CHUNK`, compiled in.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
+    """
+    if r.device.type != "cuda":
+        raise ValueError("rwkv6_scan: the raw kernel entry needs CUDA tensors "
+                         "(rwkv6 runs the plain version on the CPU)")
+    return _rwkv6_kernel(r, k, v, w, u, init_state)
+
+
+def _rwkv6_kernel(r, k, v, w, u, init_state):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     tensors = dict(r=r, k=k, v=v, w=w, u=u)
     if init_state is not None:
         tensors["init_state"] = init_state
@@ -159,8 +193,13 @@ class _Rwkv6Diff(torch.autograd.Function):
 
 
 def rwkv6_diff(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-               u: torch.Tensor, s0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               u: torch.Tensor, s0: torch.Tensor, *, chunk: int = 128,
+               interpret: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable :func:`rwkv6` (o, final state): the kernels' forward
     (the plain version on CPU tensors), the plain recurrence's backward for
-    r, k, v, w, u and s0."""
+    r, k, v, w, u and s0.
+    ``chunk`` (the TPU kernel's time block) is accepted and ignored: the
+    CUDA chunk length is :data:`CHUNK`, compiled in.
+    ``interpret`` (Pallas's interpreter) is accepted and ignored.
+    """
     return _Rwkv6Diff.apply(r, k, v, w, u, s0)

@@ -52,6 +52,12 @@ and Θ_PR; Θ_SCE the same bits across tilings, within the tolerance above of
 the plain version), with long split segments and short ones, at n_dec 2
 and 23; and the sweep kernel inside the device engine's captured body is
 captured anew, not replayed, once a persisted tuning changes its tiles.
+
+The paper's widest table and the dry-run cell on the card: the sdss stand-in
+at its full 5,201 attributes (rows cut to 3,000) reduces on the three kernel
+backends to ``segment``'s reduct on the card and on the CPU, Θ_PR bit for
+bit; the dry-run cell's shard steps on a world of one NCCL rank equal the
+solo evaluation on every form.
 """
 import numpy as np
 import pytest
@@ -723,3 +729,51 @@ def test_engine_body_with_other_tiles_is_captured_anew(cuda_device, tmp_path, mo
     assert (first.loop.captures, second.loop.captures) == (1, 1)
     assert _same(r1, host) and _same(r2, host)
     autotune.autotune_cache_clear(disk=True)
+
+
+@pytest.mark.parametrize("rows", [3_000])
+def test_sdss_width_on_card_matches_segment_and_cpu(cuda_device, rows):
+    """The sdss stand-in at its full width (5,201 attributes, 82 candidate
+    chunks an iteration) with its rows cut: the three kernel backends on the
+    card give ``segment``'s reduct on the card and on the CPU, and its Θ_PR
+    history bit for bit."""
+    from repro_torch.core import resolve_granularity
+    from repro_torch.data import scaled_paper_dataset
+
+    x, d = scaled_paper_dataset("sdss", max_rows=rows, max_attrs=5_201).table()
+    assert x.shape == (rows, 5_201)
+    kw = dict(delta="PR", engine="host", compute_core=False)
+    gran = resolve_granularity(x, d, device=cuda_device)
+    cpu = plar_reduce(x, d, backend="segment", device="cpu", **kw)
+    card = plar_reduce(source=gran, backend="segment", device=cuda_device, **kw)
+    assert (card.reduct, card.theta_history) == (cpu.reduct, cpu.theta_history)
+    for backend, kernel in (("sweep", "sweep_theta"), ("fused", "fused_theta"),
+                            ("pallas", "contingency")):
+        ops.reset_launch_counts()
+        r = plar_reduce(source=gran, backend=backend, device=cuda_device, **kw)
+        assert ops.launch_counts()[kernel] >= 82 * r.iterations > 0, backend
+        assert (r.reduct, r.theta_history) == (cpu.reduct, cpu.theta_history), backend
+
+
+@pytest.mark.parametrize("mesh_kind", ["single", "multi"])
+def test_dryrun_shard_step_on_nccl_equals_solo(nccl_world, mesh_kind):
+    """The dry-run cell's shard step (20,480 or 10,240 x 326) on a world of
+    one NCCL rank: every evaluation form's Θ equals the solo evaluation, the
+    payloads equal the model's at mesh (1, 1), and ``fused`` launches the
+    fused-Θ kernel."""
+    from repro_torch.launch import dryrun
+
+    for collective, fused_pack in [("all_reduce", False), ("reduce_scatter", False),
+                                   ("all_reduce", True), ("fused", False)]:
+        rec = dryrun.run_plar_cell(mesh_kind, collective=collective, fused_pack=fused_pack,
+                                   execute=True, device=nccl_world)
+        ran = rec["executed"]
+        assert rec["status"] == "ok" and ran["theta_equals_solo"], rec
+        assert ran["device_ms"] > 0 and ran["advance_ms"] > 0 and ran["peak_bytes"] > 0
+        assert ran["peak_over_modelled_temps"] > 0 and ran["reps"] == dryrun.REPS
+        assert rec["roofline_spec"] == torch.cuda.get_device_name(nccl_world)  # the card run
+        cell = dryrun.PlarCell.production(mesh_kind)
+        shard = dryrun.PlarCell(G=cell.g_loc, A=cell.a_loc, n_data=1, n_model=1)
+        assert ran["eval_payload_bytes"] == dryrun.model_eval_collectives(
+            shard, collective)["total_payload_bytes"]
+        assert (ran["launches"]["fused_theta"] > 0) == (collective == "fused")
