@@ -272,6 +272,29 @@ The paper slice adds, after phase 16 (before the ``kernels`` line):
     equal to the solo evaluation, the records printed (device ms, the
     median of 7, beside the modelled terms).
 
+The LM-distribution slice adds, after phase 17 (before the ``kernels``
+line):
+
+18. mesh_lm: a world of one NCCL rank (as phase 12), mesh (1, 1) over
+    ``("data", "model")``: (a) tinyllama-1.1b at full width (d 2,048, 32/4
+    heads of 64, bf16, seeded), depth cut (``reduced``), 3 ``Trainer`` steps
+    at 2 x 2,048 tokens with ``mesh=`` against the same steps with
+    ``mesh=None`` (deterministic algorithms on, warn_only): losses and grad
+    norms within 1e-5 relative, every parameter leaf within 1e-4·max|p|,
+    whether each is bit-equal printed, the tensor-core flash kernel's
+    launches equal (and > 0); s/step and peak memory of both; (b)
+    rwkv6-3b at full width (d 2,560, 40 heads), 4 layers: a 1,024-token
+    prefill and 8 greedy decode steps under ``use_mesh`` against the same
+    unsharded: tokens equal, launches by path (``rwkv6_chunked``,
+    ``rwkv6_decode``) equal; (c) qwen3-moe-235b-a22b with
+    ``moe_weight_stationary=True``, full width, depth cut as phase 14:
+    prefill and decode under ``use_mesh`` (one model shard: JAX's rule
+    takes the local path) against the local path without a mesh: tokens
+    equal; (d) the collectives on NCCL: ``compressed_psum_mean`` on a
+    [4,096] f32 tensor within one quantization step of it, and
+    ``pipeline_apply`` over a one-stage ``pipe`` mesh equal to ``stage_fn``.
+    Prints the phase's seconds.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
@@ -284,7 +307,9 @@ their launches in the sdss reductions of phase 17 (b); flash and RWKV6 carry
 ``train_ms`` / ``train_plain_ms``, forward + backward of the differentiable
 wrapper and of the plain version's autograd at the shapes of 13 (a).
 Flash also carries ``families_launches``, its launches by model in phase
-14, and ``families_rows``, phase 6's two rows of the families slice.  The
+14, and ``families_rows``, phase 6's two rows of the families slice.
+Flash and RWKV6 carry ``mesh_launches``, their launches on phase 18's mesh
+path ((a)'s sharded steps; (b)'s sharded serving, by path).  The
 three contingency kernels carry ``tiles`` (phase 16's picks by selector)
 and ``tiles_ms`` (their times there): ``analytic_tiles``/``analytic_ms``
 and ``pinned_ms`` beside them.
@@ -388,6 +413,12 @@ SDSS = dict(rows=320_000, attrs=5_201, classes=17, reduced=None,  # phase 17 (b)
                                                                # it pays the first run's costs
 DRYRUN_FORMS = [("all_reduce", False), ("reduce_scatter", False), ("all_reduce", True),
                 ("fused", False)]   # phase 17 (c): (collective, fused_pack)
+MESH_LM = dict(  # phase 18 on a world of one NCCL rank: full width, depth cut
+    train=dict(arch="tinyllama-1.1b", layers=4, global_batch=2, seq_len=2_048, steps=3),
+    rwkv=dict(arch="rwkv6-3b", layers=4, batch=1, prompt=1_024, new_tokens=8,
+              cache_len=1_040),
+    moe=dict(arch="qwen3-moe-235b-a22b", batch=2, prompt=256, new_tokens=8, cache_len=512),
+    compress_n=4_096, pipe=dict(M=4, mb=2, D=256))
 MESH_RUNS = [  # (delta, collective, engine) of phase 12 on the kdd99 granularity
     ("PR", "all_reduce", "host"), ("PR", "all_reduce", "device"),
     ("PR", "reduce_scatter", "host"), ("PR", "reduce_scatter", "device"),
@@ -2437,6 +2468,199 @@ def _dryrun_steps(torch, ops, card: str) -> dict:
     return {"records": records}
 
 
+def _mesh_train(torch, lm, mesh) -> dict:
+    """Phase 18 (a): the same 3 Trainer steps with ``mesh=`` and without."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import unshard
+    from repro_torch.train import TrainConfig, Trainer
+
+    run = MESH_LM["train"]
+    full = get_config(run["arch"])
+    cfg = dataclasses.replace(full, n_layers=run["layers"])
+    tc = TrainConfig(peak_lr=3e-4, warmup_steps=1, total_steps=run["steps"], log_every=1)
+    stream = TokenStream(vocab=cfg.vocab, seq_len=run["seq_len"],
+                         global_batch=run["global_batch"], seed=0)
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for tag, m in (("unsharded", None), ("mesh", mesh)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(cfg, tc, mesh=m, device="cuda", seed=0)
+            state = tr.init_state()
+            lm.reset()                                   # this run's steps only
+            losses, gnorms, step_s = [], [], []
+            for step in range(run["steps"]):
+                t0 = time.perf_counter()
+                state, met = tr.step_fn(state, stream.batch(step))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+                gnorms.append(float(met["grad_norm"]))
+            out[tag] = dict(losses=losses, grad_norms=gnorms, step_s=step_s,
+                            s_per_step=sorted(step_s[1:])[len(step_s[1:]) // 2],
+                            max_memory_allocated=torch.cuda.max_memory_allocated(),
+                            launches=lm.counts(),
+                            params={k: unshard(v).detach().clone()
+                                    for k, v in state["params"].items()})
+            del tr, state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = out["unsharded"], out["mesh"]
+    param_err = {k: float((b["params"][k].float() - v.float()).abs().max() /
+                          max(float(v.float().abs().max()), 1e-30))
+                 for k, v in a["params"].items()}
+    bit_equal = dict(losses=a["losses"] == b["losses"], grad_norms=a["grad_norms"] ==
+                     b["grad_norms"], params=all(torch.equal(b["params"][k], v)
+                                                 for k, v in a["params"].items()))
+    for r in (a, b):
+        del r["params"]
+    res = dict(arch=cfg.name, d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+               head_dim=cfg.hd, dtype=cfg.param_dtype,
+               reduced=[f"layers {full.n_layers} -> {cfg.n_layers}"],
+               tokens=f"{run['global_batch']} x {run['seq_len']}", steps=run["steps"],
+               unsharded=a, mesh=b, bit_equal=bit_equal,
+               max_param_rel_err=max(param_err.values()))
+    for key in ("losses", "grad_norms"):
+        bad = [(x, y) for x, y in zip(a[key], b[key]) if abs(y - x) > 1e-5 * abs(x)]
+        if bad or not all(math.isfinite(x) for x in b[key]):
+            raise AssertionError(f"phase 18 (a): {key} on the mesh differ: {bad}")
+    if res["max_param_rel_err"] > 1e-4:
+        worst = max(param_err, key=param_err.get)
+        raise AssertionError(f"phase 18 (a): parameter {worst} differs by "
+                             f"{param_err[worst]} of its max")
+    fl = (a["launches"]["flash_attention_tc"], b["launches"]["flash_attention_tc"])
+    if not (fl[0] > 0 and fl[0] == fl[1] and b["launches"]["flash_attention"] == fl[1]):
+        raise AssertionError(f"phase 18 (a): flash launches {b['launches']} on the mesh, "
+                             f"{a['launches']} without")
+    return res
+
+
+def _mesh_serve(torch, lm, model, toks, cache_len: int, steps: int, mesh) -> dict:
+    """Prefill and ``steps`` greedy decode steps, under ``use_mesh(mesh)``
+    (and ``no_grad``: DTensor's views fail under ``inference_mode`` in torch
+    2.11)."""
+    from repro_torch.distributed import unshard, use_mesh
+
+    torch.cuda.synchronize()
+    lm.reset()
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh):
+        logits, cache, lengths = model.prefill(toks, cache_len)
+        out = [unshard(logits)[:, -1].argmax(-1, keepdim=True)]
+        for _ in range(steps):
+            logits, cache, lengths = model.decode(cache, out[-1], lengths)
+            out.append(unshard(logits)[:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    return dict(tokens=torch.cat(out, 1).cpu(), seconds=time.perf_counter() - t0,
+                launches=lm.counts())
+
+
+def _mesh_serving(torch, lm, mesh, key: str) -> dict:
+    """Phase 18 (b)/(c): the same greedy serving with and without the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    run = MESH_LM[key]
+    if key == "moe":
+        cfg, reduced = _family_cfg(run["arch"])
+        cfg = dataclasses.replace(cfg, moe_weight_stationary=True)
+    else:
+        full = get_config(run["arch"])
+        cfg = dataclasses.replace(full, n_layers=run["layers"])
+        reduced = [f"layers {full.n_layers} -> {cfg.n_layers}"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (run["batch"], run["prompt"])),
+                           device="cuda")
+    local = _mesh_serve(torch, lm, model, toks, run["cache_len"], run["new_tokens"], None)
+    model.shard(mesh)
+    sharded = _mesh_serve(torch, lm, model, toks, run["cache_len"], run["new_tokens"], mesh)
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    same = torch.equal(local["tokens"], sharded["tokens"])
+    res = dict(arch=cfg.name, d_model=cfg.d_model, dtype=cfg.param_dtype, reduced=reduced,
+               moe_weight_stationary=cfg.moe_weight_stationary,
+               traffic=f"prefill {run['batch']} x {run['prompt']}, {run['new_tokens']} greedy "
+                       f"decode steps, cache_len {run['cache_len']}",
+               tokens_equal=same, tokens=sharded["tokens"].tolist(),
+               local_s=local["seconds"], mesh_s=sharded["seconds"],
+               local_launches=local["launches"], mesh_launches=sharded["launches"],
+               max_memory_allocated=peak)
+    if not same:
+        raise AssertionError(f"phase 18 ({key}): tokens on the mesh {sharded['tokens']} "
+                             f"differ from the local path's {local['tokens']}")
+    if sharded["launches"] != local["launches"] or not any(local["launches"].values()):
+        raise AssertionError(f"phase 18 ({key}): launches {sharded['launches']} on the mesh, "
+                             f"{local['launches']} without")
+    if key == "rwkv" and not (local["launches"]["rwkv6_chunked"] > 0
+                              and local["launches"]["rwkv6_decode"] > 0):
+        raise AssertionError(f"phase 18 (b): an RWKV6 path was not launched: {local['launches']}")
+    return res
+
+
+def _mesh_collectives(torch, mesh) -> dict:
+    """Phase 18 (d): the int8 compressed mean and a one-stage pipeline on NCCL."""
+    from repro_torch.distributed import (compressed_psum_mean, make_mesh, pipeline_apply,
+                                         use_mesh)
+
+    dev = torch.device("cuda")
+    x = torch.randn(MESH_LM["compress_n"], generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    with use_mesh(mesh):
+        mean, res = compressed_psum_mean(x, ("data",), n_shards=1)
+    step = float(x.abs().max()) / 127.0
+    comp_err = float((mean - x).abs().max())
+    pipe = make_mesh((1,), ("pipe",), device="cuda")
+    pp = MESH_LM["pipe"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ws = torch.randn((1, pp["D"], pp["D"]), generator=gen, device=dev) * pp["D"] ** -0.5
+    xs = torch.randn((pp["M"], pp["mb"], pp["D"]), generator=gen, device=dev)
+    stage = lambda w, h: torch.tanh(h @ w)                                 # noqa: E731
+    ys = pipeline_apply(stage, pipe)(ws, xs)
+    pipe_equal = torch.equal(ys, stage(ws[0], xs))
+    out = dict(compress=dict(n=x.numel(), max_abs_err=comp_err, quant_step=step,
+                             residual_exact=torch.equal(res, x - mean)),
+               pipeline=dict(stages=1, **pp, equal_to_stage_fn=pipe_equal))
+    if not comp_err <= step or not out["compress"]["residual_exact"]:
+        raise AssertionError(f"phase 18 (d): compressed mean off by {comp_err} (step {step})")
+    if not pipe_equal:
+        raise AssertionError("phase 18 (d): the one-stage pipeline differs from stage_fn")
+    return out
+
+
+def phase_mesh_lm(torch, lm, card: str) -> dict:
+    """Phase 18: LM distribution on a world of one NCCL rank, mesh (1, 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import init_process_group, make_mesh
+
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_lm_")) / "store"
+    init_process_group("cuda", rank=0, world_size=1, store_path=str(store), timeout_s=300)
+    t0 = time.perf_counter()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        out = {"mesh": dict(mesh.shape), "world": dist.get_world_size(),
+               "backend": dist.get_backend()}
+        out["train"] = _mesh_train(torch, lm, mesh)
+        emit({"phase": "mesh_lm_train", "card": card, **out["train"]})
+        out["rwkv"] = _mesh_serving(torch, lm, mesh, "rwkv")
+        emit({"phase": "mesh_lm_rwkv6", "card": card, **out["rwkv"]})
+        out["moe"] = _mesh_serving(torch, lm, mesh, "moe")
+        emit({"phase": "mesh_lm_moe", "card": card, **out["moe"]})
+        out["collectives"] = _mesh_collectives(torch, mesh)
+        out["seconds"] = time.perf_counter() - t0
+        emit({"phase": "mesh_lm", "card": card, "seconds": out["seconds"],
+              **out["collectives"]})
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_paper(torch, ops, plar_reduce, resolve_granularity, scaled_paper_dataset,
                 card: str) -> dict:
     """Phase 17: the paper's tables, the full sdss stand-in on every Θ
@@ -2535,6 +2759,7 @@ def main() -> None:
                                   report["main_path"]["runs"], smi)
     report["paper"] = phase_paper(torch, ops, plar_reduce, resolve_granularity,
                                   scaled_paper_dataset, smi)
+    report["mesh_lm"] = phase_mesh_lm(torch, lm, smi)
     shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
 
     top = N_BINS[-1]
@@ -2589,6 +2814,7 @@ def main() -> None:
                           for r in flash_rows if r["shape"]["Hq"] in (16, 64)],
         "train_ms": train_rows["flash_attention"]["fwd_bwd_ms"],
         "train_plain_ms": train_rows["flash_attention"]["plain_fwd_bwd_ms"],
+        "mesh_launches": report["mesh_lm"]["train"]["mesh"]["launches"]["flash_attention_tc"],
     })
     rwkv_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "rwkv6"]
     rwkv_launches = report["serving"]["rwkv6-3b"]["launches"]
@@ -2608,6 +2834,8 @@ def main() -> None:
         "train_launches": report["training"]["rwkv6-3b"]["launches"]["rwkv6"],
         "train_ms": train_rows["rwkv6"]["fwd_bwd_ms"],
         "train_plain_ms": train_rows["rwkv6"]["plain_fwd_bwd_ms"],
+        "mesh_launches": {k: report["mesh_lm"]["rwkv"]["mesh_launches"][k]
+                          for k in ("rwkv6_chunked", "rwkv6_decode")},
     })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -3,8 +3,12 @@
 :func:`build_model` materializes a :class:`CausalLM` (decoder-only: dense,
 MoE, the Mamba hybrid, RWKV6, with or without a vision frontend) or, for an
 encoder-decoder config, an :class:`EncDecLM`, on the target device (the card
-by default), as ``repro.models.build_model`` picks its family.  MoE expert
-parallelism (``moe_weight_stationary``) raises: ROADMAP §1 item 8.
+by default), as ``repro.models.build_model`` picks its family.  The
+parameters' values never depend on a mesh; a model runs sharded once its
+parameters are placed (``model.shard(mesh)``) and it is called under
+``use_mesh``.  ``moe_weight_stationary`` selects the weight-stationary MoE
+island under a mesh with a model group that divides the experts, and the
+local path otherwise, as in JAX.
 """
 from __future__ import annotations
 
@@ -18,7 +22,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from .config import SHAPES, ArchConfig, ShapeConfig, dtype_name, torch_dtype
 from .encdec import EncDecLM
 from .lm import CausalLM
-from .moe import EP_NOT_PORTED
 
 
 def build_model(cfg: ArchConfig, *, device: DeviceLike = "cuda",
@@ -34,8 +37,6 @@ def build_model(cfg: ArchConfig, *, device: DeviceLike = "cuda",
     the same in every process.
     """
     dev = resolve_device(device)
-    if cfg.n_experts and cfg.moe_weight_stationary:
-        raise NotImplementedError(f"{cfg.name}: moe_weight_stationary serving {EP_NOT_PORTED}")
     if dtype is not None:
         name = dtype_name(dtype)
         cfg = dataclasses.replace(cfg, param_dtype=name, compute_dtype=name)

@@ -19,7 +19,17 @@ The port's ``repro.models.attention``, four of its paths:
   memory (:func:`cross_attention`, a plain f32 einsum as in JAX, over K/V
   from :func:`project_cross_kv`, which carries no RoPE).
 
-Not ported yet: the mesh paths and sharding constraints.
+Sharding, as in JAX: q/k/v/o weights are TP-sharded on the head axis,
+activations are constrained per head when the head count divides the
+``model`` axis, and the KV cache is head-sharded when the KV heads divide
+it, else sequence-sharded (:func:`kv_cache_spec`).  Under a mesh JAX drops
+to its XLA attention (a Pallas call does not partition under GSPMD); the
+port keeps its kernels: every attention core runs in a :func:`shard_map`
+island on each rank's local heads (all heads on every rank where the q or
+KV heads do not divide the axis), the flash kernel on the full path.  The
+decode island writes the local cache slice in place and, on a
+sequence-sharded cache, combines the ranks' partial softmaxes with a
+``pmax`` and two sums (``psum``) over ``model`` (flash-decode).
 """
 from __future__ import annotations
 
@@ -28,6 +38,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import (BATCH_AXES, FSDP_AXIS, TP_AXIS, P, active_mesh,
+                                        axis_index, axis_size, constrain, fit_entry, pmax,
+                                        psum, shard_map)
 from repro_torch.kernels.flash_attention import flash_attention_diff
 
 from .config import torch_dtype
@@ -40,24 +53,51 @@ def attn_defs(cfg) -> Dict[str, ParamDef]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.param_dtype
     defs = {
-        "wq": ParamDef((d, hq * hd), "fan_in", dt),
-        "wk": ParamDef((d, hkv * hd), "fan_in", dt),
-        "wv": ParamDef((d, hkv * hd), "fan_in", dt),
-        "wo": ParamDef((hq * hd, d), "fan_in", dt),
+        "wq": ParamDef((d, hq * hd), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wk": ParamDef((d, hkv * hd), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wv": ParamDef((d, hkv * hd), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wo": ParamDef((hq * hd, d), (TP_AXIS, FSDP_AXIS), "fan_in", dt),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), "ones", dt)
-        defs["k_norm"] = ParamDef((hd,), "ones", dt)
+        defs["q_norm"] = ParamDef((hd,), (None,), "ones", dt)
+        defs["k_norm"] = ParamDef((hd,), (None,), "ones", dt)
     return defs
 
 
+def _maybe_head_axis(n_heads: int) -> Optional[str]:
+    """TP axis name if the head count divides the mesh's model axis."""
+    size = axis_size(TP_AXIS)
+    if size > 1 and n_heads % size == 0:
+        return TP_AXIS
+    return None
+
+
+def kv_cache_spec(cfg) -> P:
+    """[B, Hkv, S, Dh] cache: head-sharded when divisible, else seq-sharded."""
+    if _maybe_head_axis(cfg.n_kv_heads):
+        return P(BATCH_AXES, TP_AXIS, None, None)
+    return P(BATCH_AXES, None, TP_AXIS, None)
+
+
+def split_heads(y: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, H·Dh] → [B, H, S, Dh].  Under a mesh the projection is first
+    kept sharded over ``model`` only where the heads divide it (DTensor
+    cannot split a dim whose shards would cut heads)."""
+    b, s, _ = y.shape
+    y = constrain(y, BATCH_AXES, None, _maybe_head_axis(n_heads))
+    return y.reshape(b, s, n_heads, -1).transpose(1, 2)
+
+
 def _project_qkv(params, x, positions, cfg, *, rope: bool = True):
-    b, s, _ = x.shape
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
     cdt = torch_dtype(cfg.compute_dtype)
-    q = (x @ params["wq"].to(cdt)).reshape(b, s, hq, hd).transpose(1, 2)
-    k = (x @ params["wk"].to(cdt)).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = (x @ params["wv"].to(cdt)).reshape(b, s, hkv, hd).transpose(1, 2)
+    q = split_heads(x @ params["wq"].to(cdt), hq)
+    k = split_heads(x @ params["wk"].to(cdt), hkv)
+    v = split_heads(x @ params["wv"].to(cdt), hkv)
+    q = constrain(q, BATCH_AXES, _maybe_head_axis(hq), None, None)
+    kv_ax = _maybe_head_axis(hkv)
+    k = constrain(k, BATCH_AXES, kv_ax, None, None)
+    v = constrain(v, BATCH_AXES, kv_ax, None, None)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -219,20 +259,40 @@ def _naive_attention(q, k, v, *, causal: bool, window: Optional[int], scale: flo
     return o.reshape(b, hq, sq, dh).to(q.dtype)
 
 
+def _head_island_spec(b: int, hq: int, hkv: int) -> P:
+    """[B, H, S, Dh] spec of an attention island: the batch over the data
+    axes, the heads over ``model`` when both the q and the KV heads divide
+    it (a rank then holds whole GQA groups), else every head on every rank."""
+    heads = fit_entry(TP_AXIS, hq) if fit_entry(TP_AXIS, hkv) else None
+    return P(fit_entry(BATCH_AXES, b), heads, None, None)
+
+
 def self_attention_full(params, x, positions, cfg, *, causal: bool = True,
                         window: Optional[int] = None, return_kv: bool = False):
     """Train / prefill path.  Returns out [B, S, D], and (k, v) with ``return_kv``."""
     q, k, v = _project_qkv(params, x, positions, cfg)
     scale = cfg.hd ** -0.5
     if cfg.attn_naive:
-        o = _naive_attention(q, k, v, causal=causal, window=window, scale=scale)
+        core = _naive_attention
     elif cfg.flash_bwd:
-        o = flash_xla_attention(q, k, v, causal=causal, window=window, scale=scale)
+        core = flash_xla_attention
     else:
-        o = flash_attention_diff(q, k, v, causal=causal, window=window, scale=scale)
+        core = flash_attention_diff
+
+    def attend(q, k, v):
+        return core(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                    window=window, scale=scale)
+
+    mesh = active_mesh()
+    if mesh is None:
+        o = attend(q, k, v)
+    else:   # the kernel on each rank's local heads
+        spec = _head_island_spec(q.shape[0], cfg.n_heads, cfg.n_kv_heads)
+        o = shard_map(attend, mesh=mesh, in_specs=(spec, spec, spec), out_specs=spec)(q, k, v)
     b, s = x.shape[0], x.shape[1]
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     out = o @ params["wo"].to(torch_dtype(cfg.compute_dtype))
+    out = constrain(out, BATCH_AXES, None, None)
     if return_kv:
         return out, (k, v)
     return out
@@ -261,22 +321,44 @@ def _masked_decode_attention(q, k_cache, v_cache, lengths, cfg, *, window=None):
     return o.reshape(b, hq, t, dh).to(q.dtype)
 
 
+def _split_decode_attention(q, k_loc, v_loc, lengths, off: int, axis: str):
+    """:func:`_masked_decode_attention` on one rank's slice of a
+    sequence-sharded cache (its keys at ``off`` ...): local scores, the
+    global max by ``pmax``, the softmax's denominator and the PV product
+    summed over ``axis``.  The normalized softmax is cast to q's dtype before
+    the PV product, as on one device."""
+    b, hq, t, dh = q.shape
+    hkv, s = k_loc.shape[1], k_loc.shape[2]
+    qx = q.reshape(b, hkv, hq // hkv, t, dh).float()
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qx, k_loc.float()) * (dh ** -0.5)
+    kpos = off + torch.arange(s, device=q.device)[None, None, :]
+    qabs = lengths[:, None, None] + torch.arange(t, device=q.device)[None, :, None]
+    mask = (kpos <= qabs)[:, None, None]                           # [B, 1, 1, T, S]
+    scores = torch.where(mask, scores, torch.full((), NEG_INF, device=q.device))
+    m = pmax(scores.amax(-1, keepdim=True), axis)
+    e = torch.exp(scores - m)
+    p = e / psum(e.sum(-1, keepdim=True), axis)
+    o = psum(torch.einsum("bhgqk,bhkd->bhgqd", p.to(q.dtype).float(), v_loc.float()), axis)
+    return o.reshape(b, hq, t, dh).to(q.dtype)
+
+
 def _write_cache(cache: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor) -> None:
     """cache [B,Hkv,S,Dh] ← new [B,Hkv,T,Dh] at write_pos [B,T], in place.
 
     The JAX package writes with a one-hot masked update, a form it needs for
     GSPMD; it is a plain overwrite, so indexing gives the same values.  A
-    position past the cache matches no slot there and is dropped; here too.
-    With one new token a row writes one slot, so the drop is a ``where``
-    (no host sync); with more, a masked index.
+    position outside the cache matches no slot there and is dropped; here
+    too (a rank's slice of a sequence-sharded cache passes positions
+    relative to its first slot).  With one new token a row writes one slot,
+    so the drop is a ``where`` (no host sync); with more, a masked index.
     """
     b, t = write_pos.shape
     s = cache.shape[2]
     new = new.transpose(1, 2).to(cache.dtype)                      # [B, T, Hkv, Dh]
     rows = torch.arange(b, device=cache.device)[:, None].expand(b, t)
-    keep = write_pos < s
+    keep = (write_pos >= 0) & (write_pos < s)
     if t == 1:
-        pos = write_pos.clamp(max=s - 1)
+        pos = write_pos.clamp(0, s - 1)
         cache[rows, :, pos] = torch.where(keep[..., None, None], new, cache[rows, :, pos])
     else:
         cache[rows[keep], :, write_pos[keep]] = new[keep]
@@ -289,20 +371,41 @@ def self_attention_decode(params, x, cfg, cache_k, cache_v, lengths, *, window=N
     absolute).  Returns (out, cache_k, cache_v)."""
     b, t, _ = x.shape
     s_cache = cache_k.shape[2]
-    positions = lengths[:, None] + torch.arange(t, device=x.device)[None, :]
-    q, k_new, v_new = _project_qkv(params, x, positions, cfg)
+    positions = lengths[:, None] + torch.arange(t, device=lengths.device)[None, :]
     write_pos = positions % s_cache if window is not None else positions
-    _write_cache(cache_k, k_new, write_pos)
-    _write_cache(cache_v, v_new, write_pos)
-    if window is not None:
-        # rolling cache: every live slot is attendable
-        eff_len = torch.clamp(lengths, max=s_cache)
-        o = _masked_decode_attention(q, cache_k, cache_v, eff_len, cfg, window=None)
+    # rolling cache: every live slot is attendable
+    eff_len = torch.clamp(lengths, max=s_cache) if window is not None else lengths
+    q, k_new, v_new = _project_qkv(params, x, constrain(positions, BATCH_AXES, None), cfg)
+
+    def attend(q, cache_k, cache_v, k_new, v_new, write_pos, eff_len, seq_axis=None):
+        off = 0
+        if seq_axis is not None:       # this rank's slice of a sequence-sharded cache
+            off = axis_index(seq_axis) * cache_k.shape[2]
+        _write_cache(cache_k, k_new, write_pos - off)
+        _write_cache(cache_v, v_new, write_pos - off)
+        if seq_axis is None:
+            return _masked_decode_attention(q, cache_k, cache_v, eff_len, cfg)
+        return _split_decode_attention(q, cache_k, cache_v, eff_len, off, seq_axis)
+
+    mesh = active_mesh()
+    if mesh is None:
+        o = attend(q, cache_k, cache_v, k_new, v_new, write_pos, eff_len)
     else:
-        o = _masked_decode_attention(q, cache_k, cache_v, lengths, cfg)
+        cspec = P(*(fit_entry(e, n) for e, n in zip(kv_cache_spec(cfg), cache_k.shape)))
+        bt = P(cspec[0], None)
+        if cspec[1] is not None:       # head-sharded cache: each rank its heads
+            qspec = P(cspec[0], fit_entry(TP_AXIS, cfg.n_heads), None, None)
+            seq_axis = None
+        else:                          # sequence-sharded: every head on every rank
+            qspec = P(cspec[0], None, None, None)
+            seq_axis = cspec[2] if axis_size(TP_AXIS) > 1 else None
+        kvspec = P(cspec[0], cspec[1], None, None)
+        o = shard_map(lambda *a: attend(*a, seq_axis=seq_axis), mesh=mesh,
+                      in_specs=(qspec, cspec, cspec, kvspec, kvspec, bt, P(cspec[0])),
+                      out_specs=qspec)(q, cache_k, cache_v, k_new, v_new, write_pos, eff_len)
     o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.hd)
     out = o @ params["wo"].to(torch_dtype(cfg.compute_dtype))
-    return out, cache_k, cache_v
+    return constrain(out, BATCH_AXES, None, None), cache_k, cache_v
 
 
 def cross_attention(params, x, memory_k, memory_v, cfg) -> torch.Tensor:
@@ -312,20 +415,21 @@ def cross_attention(params, x, memory_k, memory_v, cfg) -> torch.Tensor:
     b, t, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cdt = torch_dtype(cfg.compute_dtype)
-    q = (x @ params["wq"].to(cdt)).reshape(b, t, hq, hd).transpose(1, 2)
+    q = constrain(split_heads(x @ params["wq"].to(cdt), hq), BATCH_AXES, _maybe_head_axis(hq),
+                  None, None)
     qx = q.reshape(b, hkv, hq // hkv, t, hd).float()
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qx, memory_k.float()) * (hd ** -0.5)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, memory_v.float())
     o = o.reshape(b, hq, t, hd).to(x.dtype).transpose(1, 2).reshape(b, t, hq * hd)
-    return o @ params["wo"].to(cdt)
+    return constrain(o @ params["wo"].to(cdt), BATCH_AXES, None, None)
 
 
 def project_cross_kv(params, memory, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V [B, Hkv, Se, Dh] of the encoder output (no RoPE)."""
-    b, se, _ = memory.shape
-    hkv, hd = cfg.n_kv_heads, cfg.hd
+    hkv = cfg.n_kv_heads
     cdt = torch_dtype(cfg.compute_dtype)
-    k = (memory @ params["wk"].to(cdt)).reshape(b, se, hkv, hd).transpose(1, 2)
-    v = (memory @ params["wv"].to(cdt)).reshape(b, se, hkv, hd).transpose(1, 2)
-    return k, v
+    k = split_heads(memory @ params["wk"].to(cdt), hkv)
+    v = split_heads(memory @ params["wv"].to(cdt), hkv)
+    ax = _maybe_head_axis(hkv)
+    return constrain(k, BATCH_AXES, ax, None, None), constrain(v, BATCH_AXES, ax, None, None)

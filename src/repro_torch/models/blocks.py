@@ -26,6 +26,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.api import active_mesh, place_like, use_mesh
+
 from .attention import attn_defs, self_attention_decode, self_attention_full
 from .layers import ParamTree, norm_def, rms_norm
 from .mlp import mlp, mlp_defs
@@ -128,8 +130,23 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def remat_fn(fn):
+    """``fn`` bound to the active mesh: a checkpoint's recompute runs in the
+    backward, which autograd runs on a device thread for CUDA tensors, where
+    the context variable of :func:`use_mesh` is unset."""
+    mesh = active_mesh()
+    if mesh is None:
+        return fn
+
+    def run(*args):
+        with use_mesh(mesh):
+            return fn(*args)
+    return run
+
+
 def _remat(fn, cfg, x):
     """``fn(x)`` under activation checkpointing by ``cfg.remat_policy``."""
+    fn = remat_fn(fn)
     if cfg.remat_policy == "dots":
         return checkpoint(fn, x, use_reentrant=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
@@ -174,5 +191,6 @@ def run_stack_decode(blocks, x, cfg, caches, lengths, *, window=None):
         x, updates = blk.decode(x, {k: leaf[p] for k, leaf in leaves.items()}, lengths,
                                 window=window)
         for k, val in updates.items():
-            leaves[k][p].copy_(val)
+            dst = leaves[k][p]
+            dst.copy_(place_like(val, dst))
     return x, caches

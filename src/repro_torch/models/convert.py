@@ -28,8 +28,9 @@ import torch
 
 from .blocks import layer_pattern
 from .config import ArchConfig
+from .layers import flatten_tree
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "specs_to_jax"]
 
 _BF16_BYTES = np.dtype("V2")   # how an npz holds a bf16 array
 
@@ -41,15 +42,6 @@ def _tensor(a: Any) -> torch.Tensor:
     if a.dtype == _BF16_BYTES:       # a bf16 leaf read back from an npz
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a))  # a writable copy
-
-
-def _flatten(tree: Dict[str, Any], prefix: str, out: Dict[str, Any]) -> None:
-    for name, leaf in tree.items():
-        key = f"{prefix}.{name}" if prefix else name
-        if isinstance(leaf, dict):
-            _flatten(leaf, key, out)
-        else:
-            out[key] = leaf
 
 
 def _layer_slots(cfg: ArchConfig):
@@ -74,13 +66,10 @@ def params_from_jax(cfg: ArchConfig, params_np: Dict[str, Any]) -> Dict[str, tor
     the port's ``state_dict`` (CPU tensors in the JAX dtypes;
     ``load_state_dict`` copies them to the model's device and dtype)."""
     slots = _layer_slots(cfg)
-    flat: Dict[str, Any] = {}
-    _flatten({k: v for k, v in params_np.items() if k not in slots}, "", flat)
+    flat = flatten_tree({k: v for k, v in params_np.items() if k not in slots})
     for name, layers in slots.items():
         for layer, (path, i) in enumerate(layers):
-            stacked: Dict[str, Any] = {}
-            _flatten(_node(params_np, path), "", stacked)
-            for key, leaf in stacked.items():
+            for key, leaf in flatten_tree(_node(params_np, path)).items():
                 flat[f"{name}.{layer}.{key}"] = np.asarray(leaf)[i]
     return {k: _tensor(v) for k, v in flat.items()}
 
@@ -92,28 +81,43 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_to_jax(cfg: ArchConfig, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's ``state_dict`` (or any dict keyed like it, e.g. AdamW
-    moments) as the JAX tree: numpy leaves on the host, layer leaves stacked
-    as JAX stacks them (``[n_periods, ...]`` under ``blocks/pos{j}``,
-    ``[n_layers, ...]`` under ``encoder`` and ``decoder``)."""
+def _to_jax(cfg: ArchConfig, state: Mapping[str, Any], leaf, stack) -> Dict[str, Any]:
     slots = _layer_slots(cfg)
     tree: Dict[str, Any] = {}
 
-    def put(path, leaf):
+    def put(path, val):
         node = tree
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = leaf
+        node[path[-1]] = val
 
-    groups: Dict[tuple, Dict[int, torch.Tensor]] = {}   # (JAX path, leaf key) → {index: leaf}
+    groups: Dict[tuple, Dict[int, Any]] = {}   # (JAX path, leaf key) → {index: leaf}
     for key, t in state.items():
         parts = key.split(".")
         if parts[0] in slots:
             path, i = slots[parts[0]][int(parts[1])]
             groups.setdefault((tuple(path), ".".join(parts[2:])), {})[i] = t
         else:
-            put(parts, _numpy(t))
+            put(parts, leaf(t))
     for (path, key), leaves in groups.items():
-        put([*path, *key.split(".")], np.stack([_numpy(leaves[i]) for i in sorted(leaves)]))
+        put([*path, *key.split(".")], stack([leaf(leaves[i]) for i in sorted(leaves)]))
     return tree
+
+
+def params_to_jax(cfg: ArchConfig, state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` (or any dict keyed like it, e.g. AdamW
+    moments) as the JAX tree: numpy leaves on the host, layer leaves stacked
+    as JAX stacks them (``[n_periods, ...]`` under ``blocks/pos{j}``,
+    ``[n_layers, ...]`` under ``encoder`` and ``decoder``)."""
+    return _to_jax(cfg, state, _numpy, np.stack)
+
+
+def _stack_specs(specs):
+    if any(sp != specs[0] for sp in specs):
+        raise ValueError(f"the layers of one stacked leaf have different specs: {set(specs)}")
+    return type(specs[0])(None, *specs[0])
+
+
+def specs_to_jax(cfg: ArchConfig, specs: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's ``param_specs()`` as JAX's ``param_specs()`` tree."""
+    return _to_jax(cfg, specs, lambda sp: sp, _stack_specs)

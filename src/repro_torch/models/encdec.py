@@ -15,7 +15,9 @@ The JAX package stacks each stack's layers ``[n_layers, ...]`` and scans;
 the port keeps one parameter tree per layer (``encoder.{l}``,
 ``decoder.{l}``).  The cache keeps JAX's layout: ``k``, ``v`` ``[dec_layers,
 B, Hkv, cache_len, Dh]`` and ``cross_k``, ``cross_v`` ``[dec_layers, B, Hkv,
-enc_len, Dh]``, in the compute dtype.
+enc_len, Dh]``, in the compute dtype.  Sharding as :class:`CausalLM`'s: the
+specs keyed like the ``state_dict``, the activations constrained at JAX's
+points, the cache placed by :meth:`cache_shardings` under a mesh.
 """
 from __future__ import annotations
 
@@ -25,11 +27,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (attn_defs, cross_attention, project_cross_kv, self_attention_decode,
-                        self_attention_full)
+from repro_torch.distributed.api import BATCH_AXES, TP_AXIS, constrain, stack
+
+from .attention import (attn_defs, cross_attention, kv_cache_spec, project_cross_kv,
+                        self_attention_decode, self_attention_full)
+from .blocks import remat_fn
 from .config import ArchConfig, torch_dtype
 from .frontends import frontend_defs, project_frontend
-from .layers import ParamTree, add_params, cross_entropy_loss, embed_defs, norm_def, rms_norm
+from .layers import (ParamDef, ParamTree, ShardedDefs, add_params, cross_entropy_loss,
+                     embed_defs, embed_lookup, norm_def, rms_norm, shardings_from_defs,
+                     specs_from_defs)
 from .mlp import mlp, mlp_defs
 
 Cache = Dict[str, torch.Tensor]
@@ -46,7 +53,7 @@ def _dec_block_defs(cfg) -> Dict[str, Any]:
             "norm3": norm_def(cfg), "ffn": mlp_defs(cfg)}
 
 
-class EncDecLM(nn.Module):
+class EncDecLM(ShardedDefs, nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: torch.device, seed: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -64,13 +71,24 @@ class EncDecLM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def param_defs(self) -> Dict[str, Any]:
+        """The ParamDefs keyed like ``state_dict`` (one tree a layer)."""
+        cfg = self.cfg
+        return {"embed": embed_defs(cfg), "frontend": frontend_defs(cfg),
+                "enc_norm": norm_def(cfg), "final_norm": norm_def(cfg),
+                "encoder": {str(l): _enc_block_defs(cfg) for l in range(cfg.enc_layers)},
+                "decoder": {str(l): _dec_block_defs(cfg) for l in range(cfg.dec_layers)}}
+
+    def _positions(self, b: int, s: int, device) -> torch.Tensor:
+        return constrain(torch.arange(s, device=device)[None].expand(b, s), BATCH_AXES, None)
+
     def _stack(self, layers, body, h):
         """``body(layer, h)`` over ``layers``; with ``cfg.remat`` and grad
         enabled each layer recomputes in the backward (JAX checkpoints its
         scan body)."""
         for layer in layers:
             if self.cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(body, layer, h, use_reentrant=False)
+                h = checkpoint(remat_fn(body), layer, h, use_reentrant=False)
             else:
                 h = body(layer, h)
         return h
@@ -81,7 +99,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         h = project_frontend(self.frontend, frames, cfg)
         b, s, _ = h.shape
-        positions = torch.arange(s, device=h.device)[None].expand(b, s)
+        positions = self._positions(b, s, h.device)
 
         def body(layer, h):
             x = rms_norm(h, layer["norm1"], cfg.norm_eps)
@@ -93,13 +111,14 @@ class EncDecLM(nn.Module):
 
     # ---- decoder ------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed["embedding"][tokens.long()].to(torch_dtype(self.cfg.compute_dtype))
+        h = embed_lookup(self.embed["embedding"], tokens)
+        return constrain(h.to(torch_dtype(self.cfg.compute_dtype)), BATCH_AXES, None, None)
 
     def _decode_stack_full(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = self._embed(tokens)
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = self._positions(b, s, tokens.device)
 
         def body(layer, h):
             x = rms_norm(h, layer["norm1"], cfg.norm_eps)
@@ -113,7 +132,8 @@ class EncDecLM(nn.Module):
         return rms_norm(self._stack(self.decoder, body, h), self.final_norm, cfg.norm_eps)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        return h @ self.embed["lm_head"].to(torch_dtype(self.cfg.compute_dtype))
+        logits = h @ self.embed["lm_head"].to(torch_dtype(self.cfg.compute_dtype))
+        return constrain(logits, BATCH_AXES, None, TP_AXIS)
 
     # ---- teacher forcing / training -------------------------------------------
     def forward(self, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -128,15 +148,27 @@ class EncDecLM(nn.Module):
                                   batch.get("loss_mask"))
 
     # ---- serving --------------------------------------------------------------
-    def init_cache(self, batch_size: int, cache_len: int, enc_len: int) -> Cache:
+    def cache_defs(self, batch_size: int, cache_len: int, enc_len: int) -> Dict[str, Any]:
         cfg = self.cfg
-        cdt = torch_dtype(cfg.compute_dtype)
+        kv_spec = tuple(kv_cache_spec(cfg))
 
-        def kv(s):
-            return torch.zeros((cfg.dec_layers, batch_size, cfg.n_kv_heads, s, cfg.hd),
-                               dtype=cdt, device=self.device)
+        def kv(s_):
+            return ParamDef((batch_size, cfg.n_kv_heads, s_, cfg.hd), kv_spec, "zeros",
+                            cfg.compute_dtype).with_layer_dim(cfg.dec_layers)
         return {"k": kv(cache_len), "v": kv(cache_len),
                 "cross_k": kv(enc_len), "cross_v": kv(enc_len)}
+
+    def cache_specs(self, batch_size: int, cache_len: int, enc_len: int) -> Dict[str, Any]:
+        return specs_from_defs(self.cache_defs(batch_size, cache_len, enc_len), fsdp=True)
+
+    def cache_shardings(self, batch_size: int, cache_len: int, enc_len: int, mesh):
+        return shardings_from_defs(self.cache_defs(batch_size, cache_len, enc_len), True, mesh)
+
+    def init_cache(self, batch_size: int, cache_len: int, enc_len: int) -> Cache:
+        """The zero cache (placed by its specs under a mesh)."""
+        return {k: constrain(torch.zeros(d.shape, dtype=torch_dtype(d.dtype),
+                                         device=self.device), *d.spec)
+                for k, d in self.cache_defs(batch_size, cache_len, enc_len).items()}
 
     def prefill(self, batch: Mapping[str, torch.Tensor], cache_len: int
                 ) -> Tuple[Cache, torch.Tensor]:
@@ -147,8 +179,9 @@ class EncDecLM(nn.Module):
         b = memory.shape[0]
         kvs = [project_cross_kv(layer["cross_attn"], memory, self.cfg) for layer in self.decoder]
         cache = self.init_cache(b, cache_len, 0)
-        cache["cross_k"] = torch.stack([k for k, _ in kvs]).to(cdt)
-        cache["cross_v"] = torch.stack([v for _, v in kvs]).to(cdt)
+        spec = self.cache_defs(b, cache_len, memory.shape[1])["cross_k"].spec
+        cache["cross_k"] = constrain(stack([k for k, _ in kvs]).to(cdt), *spec)
+        cache["cross_v"] = constrain(stack([v for _, v in kvs]).to(cdt), *spec)
         return cache, torch.zeros((b,), dtype=torch.int32, device=memory.device)
 
     def decode(self, cache: Cache, tokens: torch.Tensor, lengths: torch.Tensor

@@ -11,15 +11,19 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.api import BATCH_AXES, FSDP_AXIS, constrain
+
 from .config import torch_dtype
 from .layers import ParamDef
 
 
 def frontend_defs(cfg) -> Dict[str, ParamDef]:
-    return {"proj": ParamDef((cfg.frontend_dim, cfg.d_model), "fan_in", cfg.param_dtype)}
+    return {"proj": ParamDef((cfg.frontend_dim, cfg.d_model), (None, FSDP_AXIS), "fan_in",
+                             cfg.param_dtype)}
 
 
 def project_frontend(params, feats: torch.Tensor, cfg) -> torch.Tensor:
     """feats [B, P, frontend_dim] → [B, P, D] prefix embeddings."""
     cdt = torch_dtype(cfg.compute_dtype)
-    return feats.to(cdt) @ params["proj"].to(cdt)
+    feats = constrain(feats, BATCH_AXES, None, None)      # an input: placed under a mesh
+    return constrain(feats.to(cdt) @ params["proj"].to(cdt), BATCH_AXES, None, None)

@@ -21,24 +21,38 @@ with ``k``/``v`` ``[.., B, Hkv, cache_len, Dh]`` for attention and
 ``tm_shift``/``cm_shift`` ``[.., B, D]`` and ``wkv`` ``[.., B, H, Dh, Dh]``
 (f32) for RWKV, ``conv`` ``[.., B, K-1, Di]`` (compute dtype) and ``ssm``
 ``[.., B, Di, Ds]`` (f32) for Mamba.
+
+Sharding (JAX's ``param_specs``, ``param_shardings``, ``cache_specs``,
+``cache_shardings``): the specs are keyed like the port's ``state_dict``
+(one tree a layer; ``models.convert.specs_to_jax`` stacks them into JAX's
+``[n_periods, ...]`` leaves, whose first entry is ``None``).
+``model.shard(mesh)`` places the parameters; under ``use_mesh`` the entry
+points constrain their inputs (a plain tensor is the global value), the
+activations at JAX's points, and return DTensors (``unshard`` gathers one);
+the cache is made and kept placed by :meth:`cache_shardings`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .blocks import Block, layer_pattern, run_stack_decode, run_stack_full
+from repro_torch.distributed.api import BATCH_AXES, TP_AXIS, constrain, local_op, stack
+
+from .attention import kv_cache_spec
+from .blocks import Block, block_defs, layer_pattern, run_stack_decode, run_stack_full
 from .config import ArchConfig, torch_dtype
 from .frontends import frontend_defs, project_frontend
-from .layers import add_params, cross_entropy_loss, embed_defs, norm_def, rms_norm
+from .layers import (ParamDef, ShardedDefs, add_params, cross_entropy_loss, embed_defs,
+                     embed_lookup, norm_def, rms_norm, shardings_from_defs, specs_from_defs)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 Batch = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
 
-class CausalLM(nn.Module):
+class CausalLM(ShardedDefs, nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: torch.device, seed: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -57,13 +71,24 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def param_defs(self) -> Dict[str, Any]:
+        """The ParamDefs keyed like ``state_dict`` (one tree a layer)."""
+        cfg = self.cfg
+        pattern, _ = layer_pattern(cfg)
+        defs: Dict[str, Any] = {"embed": embed_defs(cfg), "final_norm": norm_def(cfg)}
+        if cfg.frontend:
+            defs["frontend"] = frontend_defs(cfg)
+        defs["blocks"] = {str(l): block_defs(cfg, *pattern[l % len(pattern)])
+                          for l in range(cfg.n_layers)}
+        return defs
+
     # ---- embedding / head --------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = self.embed["embedding"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
+        h = embed_lookup(self.embed["embedding"], tokens).to(torch_dtype(cfg.compute_dtype))
         if cfg.embed_scale:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
-        return h
+        return constrain(h, BATCH_AXES, None, None)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -75,7 +100,10 @@ class CausalLM(nn.Module):
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = torch.tanh(logits / c) * c
-        return logits
+        return constrain(logits, BATCH_AXES, None, TP_AXIS)
+
+    def _positions(self, b: int, s: int, device) -> torch.Tensor:
+        return constrain(torch.arange(s, device=device)[None].expand(b, s), BATCH_AXES, None)
 
     def _inputs(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(token ids, embeddings with the frontend prefix fused in)."""
@@ -95,7 +123,7 @@ class CausalLM(nn.Module):
     def forward(self, batch: Batch) -> torch.Tensor:
         tokens, h = self._inputs(batch)
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = self._positions(b, s, tokens.device)
         h, _ = run_stack_full(self.blocks, h, positions, self.cfg, window=self.cfg.window)
         return self._logits(rms_norm(h, self.final_norm, self.cfg.norm_eps))
 
@@ -105,52 +133,70 @@ class CausalLM(nn.Module):
                                   batch.get("loss_mask"))
 
     # ---- serving -----------------------------------------------------------
-    def _cache_shapes(self, batch_size: int, cache_len: int) -> Dict[str, Dict[str, Any]]:
+    def cache_defs(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
+        """ParamDef-style description of the decode cache (shapes + specs),
+        JAX's: ``{"pos{j}": {leaf: [n_periods, B, ...]}}``."""
         cfg = self.cfg
-        cdt = torch_dtype(cfg.compute_dtype)
         pattern, n_periods = layer_pattern(cfg)
-        out = {}
+        kv_spec = tuple(kv_cache_spec(cfg))
+        cdt = cfg.compute_dtype
+        out: Dict[str, Any] = {}
         for j, (kind, _) in enumerate(pattern):
             if kind == "attn":
-                kv = ((n_periods, batch_size, cfg.n_kv_heads, cache_len, cfg.hd), cdt)
-                out[f"pos{j}"] = {"k": kv, "v": kv}
+                kv = ParamDef((batch_size, cfg.n_kv_heads, cache_len, cfg.hd), kv_spec, "zeros",
+                              cdt)
+                c = {"k": kv, "v": kv}
             elif kind == "mamba":
-                out[f"pos{j}"] = {
-                    "conv": ((n_periods, batch_size, cfg.ssm_d_conv - 1, cfg.ssm_d_inner), cdt),
-                    "ssm": ((n_periods, batch_size, cfg.ssm_d_inner, cfg.ssm_d_state),
-                            torch.float32),
+                c = {
+                    "conv": ParamDef((batch_size, cfg.ssm_d_conv - 1, cfg.ssm_d_inner),
+                                     (BATCH_AXES, None, TP_AXIS), "zeros", cdt),
+                    "ssm": ParamDef((batch_size, cfg.ssm_d_inner, cfg.ssm_d_state),
+                                    (BATCH_AXES, TP_AXIS, None), "zeros", "float32"),
                 }
             else:  # rwkv
-                shift = ((n_periods, batch_size, cfg.d_model), cdt)
+                shift = ParamDef((batch_size, cfg.d_model), (BATCH_AXES, None), "zeros", cdt)
                 hd = cfg.rwkv_head_dim
-                out[f"pos{j}"] = {
+                c = {
                     "tm_shift": shift,
-                    "wkv": ((n_periods, batch_size, cfg.rwkv_heads, hd, hd), torch.float32),
+                    "wkv": ParamDef((batch_size, cfg.rwkv_heads, hd, hd),
+                                    (BATCH_AXES, TP_AXIS, None, None), "zeros", "float32"),
                     "cm_shift": shift,
                 }
+            out[f"pos{j}"] = {k: d.with_layer_dim(n_periods) for k, d in c.items()}
         return out
 
+    def cache_specs(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
+        return specs_from_defs(self.cache_defs(batch_size, cache_len), fsdp=True)
+
+    def cache_shardings(self, batch_size: int, cache_len: int, mesh) -> Dict[str, Any]:
+        return shardings_from_defs(self.cache_defs(batch_size, cache_len), True, mesh)
+
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
-        return {pos: {k: torch.zeros(shape, dtype=dt, device=self.device)
-                      for k, (shape, dt) in leaves.items()}
-                for pos, leaves in self._cache_shapes(batch_size, cache_len).items()}
+        """The zero cache (placed by its specs under a mesh)."""
+        return {pos: {k: constrain(torch.zeros(d.shape, dtype=torch_dtype(d.dtype),
+                                               device=self.device), *d.spec)
+                      for k, d in leaves.items()}
+                for pos, leaves in self.cache_defs(batch_size, cache_len).items()}
 
     def _stack_cache(self, per_layer: List[Dict[str, torch.Tensor]], b: int,
                      cache_len: int) -> Cache:
         """Per-layer prefill states → the stacked cache.  Attention k/v are
         padded with zeros to ``cache_len``, or cut to it when the prompt is
         longer."""
-        cache = self.init_cache(b, cache_len)
-        period = len(cache)
-        for layer, leaves in enumerate(per_layer):
-            p, j = divmod(layer, period)
-            for k, val in leaves.items():
-                dst = cache[f"pos{j}"][k][p]
+        defs = self.cache_defs(b, cache_len)
+        period = len(defs)
+        cache: Cache = {}
+        def pad(v):      # k/v [B, Hkv, S, Dh] (S never sharded here) → cache_len slots
+            return F.pad(v[:, :, :cache_len], (0, 0, 0, cache_len - min(v.shape[2], cache_len)))
+
+        for j in range(period):
+            leaves = {}
+            for k, d in defs[f"pos{j}"].items():
+                vals = [c[k] for c in per_layer[j::period]]
                 if k in ("k", "v"):
-                    n = min(val.shape[2], cache_len)
-                    dst[:, :, :n] = val[:, :, :n]
-                else:
-                    dst.copy_(val)
+                    vals = [local_op(pad, v) for v in vals]
+                leaves[k] = constrain(stack(vals).to(torch_dtype(d.dtype)), *d.spec)
+            cache[f"pos{j}"] = leaves
         return cache
 
     def prefill(self, batch: Batch, cache_len: int
@@ -160,7 +206,7 @@ class CausalLM(nn.Module):
         cfg = self.cfg
         tokens, h = self._inputs(batch)
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = self._positions(b, s, tokens.device)
         h, per_layer = run_stack_full(self.blocks, h, positions, cfg,
                                       window=cfg.window, collect_cache=True)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)

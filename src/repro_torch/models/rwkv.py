@@ -12,6 +12,12 @@ configs).  The recurrence runs through the RWKV6 kernel
 k, v, w cast to f32; with grad enabled (training) under its differentiable
 wrapper ``rwkv6_diff`` (kernel forward, plain backward), as JAX's time-mix
 calls ``rwkv6_diff``.  The token-shift state is ``[B, D]`` (the last token).
+
+Heads are TP-sharded: each head's [Dh, Dh] state is local to its rank, so
+the only collectives of a block are the in/out projections'.  Under a mesh
+the kernel runs in a :func:`shard_map` island on each rank's local heads
+(every head where the count does not divide the ``model`` axis: 40 heads on
+16 ranks), where JAX drops to its plain reference scan.
 """
 from __future__ import annotations
 
@@ -20,9 +26,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import (BATCH_AXES, FSDP_AXIS, TP_AXIS, P, active_mesh,
+                                        constrain, fit_entry, shard_map)
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_diff
 
 from .config import torch_dtype
+from .attention import split_heads
 from .layers import ParamDef
 
 LN_X_EPS = 64e-5  # the per-head group norm's eps
@@ -35,27 +44,27 @@ def rwkv_defs(cfg) -> Dict[str, ParamDef]:
     dt = cfg.param_dtype
     return {
         # time-mix
-        "mu_r": ParamDef((d,), "normal", dt),
-        "mu_k": ParamDef((d,), "normal", dt),
-        "mu_v": ParamDef((d,), "normal", dt),
-        "mu_w": ParamDef((d,), "normal", dt),
-        "mu_g": ParamDef((d,), "normal", dt),
-        "wr": ParamDef((d, d), "fan_in", dt),
-        "wk": ParamDef((d, d), "fan_in", dt),
-        "wv": ParamDef((d, d), "fan_in", dt),
-        "wg": ParamDef((d, d), "fan_in", dt),
-        "w0": ParamDef((d,), "normal", "float32"),
-        "w_lora_a": ParamDef((d, r), "fan_in", "float32"),
-        "w_lora_b": ParamDef((r, d), "fan_in", "float32"),
-        "bonus_u": ParamDef((h, hd), "normal", "float32"),
-        "ln_x": ParamDef((d,), "ones", dt),
-        "wo": ParamDef((d, d), "fan_in", dt),
+        "mu_r": ParamDef((d,), (None,), "normal", dt),
+        "mu_k": ParamDef((d,), (None,), "normal", dt),
+        "mu_v": ParamDef((d,), (None,), "normal", dt),
+        "mu_w": ParamDef((d,), (None,), "normal", dt),
+        "mu_g": ParamDef((d,), (None,), "normal", dt),
+        "wr": ParamDef((d, d), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wk": ParamDef((d, d), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wv": ParamDef((d, d), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "wg": ParamDef((d, d), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "w0": ParamDef((d,), (None,), "normal", "float32"),
+        "w_lora_a": ParamDef((d, r), (FSDP_AXIS, None), "fan_in", "float32"),
+        "w_lora_b": ParamDef((r, d), (None, TP_AXIS), "fan_in", "float32"),
+        "bonus_u": ParamDef((h, hd), (TP_AXIS, None), "normal", "float32"),
+        "ln_x": ParamDef((d,), (None,), "ones", dt),
+        "wo": ParamDef((d, d), (TP_AXIS, FSDP_AXIS), "fan_in", dt),
         # channel-mix
-        "cmu_k": ParamDef((d,), "normal", dt),
-        "cmu_r": ParamDef((d,), "normal", dt),
-        "ck": ParamDef((d, f), "fan_in", dt),
-        "cv": ParamDef((f, d), "fan_in", dt),
-        "cr": ParamDef((d, d), "fan_in", dt),
+        "cmu_k": ParamDef((d,), (None,), "normal", dt),
+        "cmu_r": ParamDef((d,), (None,), "normal", dt),
+        "ck": ParamDef((d, f), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "cv": ParamDef((f, d), (TP_AXIS, FSDP_AXIS), "fan_in", dt),
+        "cr": ParamDef((d, d), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
     }
 
 
@@ -73,7 +82,7 @@ def _lerp(x, prev, mu):
 
 def _heads(x: torch.Tensor, b: int, t: int, h: int, hd: int) -> torch.Tensor:
     """[B, T, H·hd] → contiguous f32 [B, H, T, hd], the kernel's layout."""
-    return x.reshape(b, t, h, hd).transpose(1, 2).float().contiguous()
+    return split_heads(x, h).float().contiguous()
 
 
 def rwkv_time_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = None,
@@ -99,10 +108,27 @@ def rwkv_time_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = None,
     logw = params["w0"][None, None] + lora                        # [B, T, D]
     w = _heads(torch.exp(-torch.exp(logw)), b, t, h, hd)
 
+    r = constrain(r, BATCH_AXES, TP_AXIS, None, None)
+    k = constrain(k, BATCH_AXES, TP_AXIS, None, None)
+    v = constrain(v, BATCH_AXES, TP_AXIS, None, None)
+    w = constrain(w, BATCH_AXES, TP_AXIS, None, None)
+
     if wkv_state is None:
         wkv_state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     scan = rwkv6_diff if torch.is_grad_enabled() else rwkv6
-    o, s_fin = scan(r, k, v, w, params["bonus_u"].contiguous(), wkv_state.contiguous())
+
+    def run(r, k, v, w, u, s0):
+        return scan(r.contiguous(), k.contiguous(), v.contiguous(), w.contiguous(),
+                    u.contiguous(), s0.contiguous())
+
+    mesh = active_mesh()
+    if mesh is None:
+        o, s_fin = run(r, k, v, w, params["bonus_u"], wkv_state)
+    else:   # the kernel on each rank's local heads
+        heads = fit_entry(TP_AXIS, h)
+        spec = P(fit_entry(BATCH_AXES, b), heads, None, None)
+        o, s_fin = shard_map(run, mesh=mesh, in_specs=(spec,) * 4 + (P(heads, None), spec),
+                             out_specs=(spec, spec))(r, k, v, w, params["bonus_u"], wkv_state)
     o = o.transpose(1, 2).reshape(b, t, d)
 
     # per-head group norm (ln_x), then gate
@@ -110,7 +136,7 @@ def rwkv_time_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = None,
     var = (of * of).mean(dim=-1, keepdim=True)
     of = of * torch.rsqrt(var + LN_X_EPS)
     o = (of.reshape(b, t, d) * params["ln_x"][None, None].float()).to(cdt)
-    out = (o * g) @ params["wo"].to(cdt)
+    out = constrain((o * g) @ params["wo"].to(cdt), BATCH_AXES, None, None)
     if return_state:
         return out, (last, s_fin)
     return out
@@ -123,9 +149,10 @@ def rwkv_channel_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = No
     xk = _lerp(x, prev, params["cmu_k"])
     xr = _lerp(x, prev, params["cmu_r"])
     kk = torch.square(F.relu(xk @ params["ck"].to(cdt)))
+    kk = constrain(kk, BATCH_AXES, None, TP_AXIS)
     vv = kk @ params["cv"].to(cdt)
     rr = torch.sigmoid(xr @ params["cr"].to(cdt))
-    out = rr * vv
+    out = constrain(rr * vv, BATCH_AXES, None, None)
     if return_state:
         return out, last
     return out

@@ -19,6 +19,10 @@ at a time and contracts the chunk's states with ``C`` before the next: JAX
 materializes ``h_all [B, T, Di, Ds]`` for the whole sequence (1.07 GB in
 f32 at jamba's width and T 1,024).  The values are the same.  The scan is
 plain PyTorch on either device, as it is plain JAX in the reference.
+
+Sharding as in JAX: the inner width Di over ``model``, the batch over the
+data axes; the scan is elementwise over (B, Di), so it runs on DTensors as
+they are.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.api import BATCH_AXES, FSDP_AXIS, TP_AXIS, constrain
 
 from .config import torch_dtype
 from .layers import ParamDef
@@ -35,15 +41,15 @@ def mamba_defs(cfg) -> Dict[str, ParamDef]:
     d, di, ds, r, kc = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_d_state, cfg.dt_rank, cfg.ssm_d_conv
     dt = cfg.param_dtype
     return {
-        "in_proj": ParamDef((d, 2 * di), "fan_in", dt),
-        "conv_w": ParamDef((kc, di), "fan_in", dt),
-        "conv_b": ParamDef((di,), "zeros", dt),
-        "x_proj": ParamDef((di, r + 2 * ds), "fan_in", dt),
-        "dt_proj": ParamDef((r, di), "fan_in", dt),
-        "dt_bias": ParamDef((di,), "zeros", "float32"),
-        "a_log": ParamDef((di, ds), "ones", "float32"),
-        "d_skip": ParamDef((di,), "ones", "float32"),
-        "out_proj": ParamDef((di, d), "fan_in", dt),
+        "in_proj": ParamDef((d, 2 * di), (FSDP_AXIS, TP_AXIS), "fan_in", dt),
+        "conv_w": ParamDef((kc, di), (None, TP_AXIS), "fan_in", dt),
+        "conv_b": ParamDef((di,), (TP_AXIS,), "zeros", dt),
+        "x_proj": ParamDef((di, r + 2 * ds), (TP_AXIS, None), "fan_in", dt),
+        "dt_proj": ParamDef((r, di), (None, TP_AXIS), "fan_in", dt),
+        "dt_bias": ParamDef((di,), (TP_AXIS,), "zeros", "float32"),
+        "a_log": ParamDef((di, ds), (TP_AXIS, None), "ones", "float32"),
+        "d_skip": ParamDef((di,), (TP_AXIS,), "ones", "float32"),
+        "out_proj": ParamDef((di, d), (TP_AXIS, FSDP_AXIS), "fan_in", dt),
     }
 
 
@@ -57,7 +63,8 @@ def _depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """
     k, t = w.shape[0], x.shape[1]
     if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        state = constrain(torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                                      device=x.device), BATCH_AXES, None, TP_AXIS)
     xp = torch.cat([state.to(x.dtype), x], dim=1)                 # [B, K-1+T, Di]
     y = xp[:, 0:t] * w[0]
     for i in range(1, k):                                         # JAX's order of the sum
@@ -109,20 +116,25 @@ def mamba(params, x: torch.Tensor, cfg, *,
     cdt = torch_dtype(cfg.compute_dtype)
     sdt = torch_dtype(cfg.ssm_compute_dtype)
 
-    xi, z = (x @ params["in_proj"].to(cdt)).chunk(2, dim=-1)      # [B, T, Di] each
+    xz = constrain(x @ params["in_proj"].to(cdt), BATCH_AXES, None, TP_AXIS)
+    xi, z = xz.chunk(2, dim=-1)                                   # [B, T, Di] each
+    xi = constrain(xi, BATCH_AXES, None, TP_AXIS)
     xi, conv_state_new = _depthwise_conv(xi, params["conv_w"].to(cdt), params["conv_b"],
                                          conv_state)
-    xi = F.silu(xi)
+    xi = constrain(F.silu(xi), BATCH_AXES, None, TP_AXIS)
 
     dbc = (xi @ params["x_proj"].to(cdt)).float()                 # [B, T, R+2Ds]
     dt_lo, b_ssm, c_ssm = torch.split(dbc, [r, ds, ds], dim=-1)
     dt = F.softplus(dt_lo @ params["dt_proj"].float() + params["dt_bias"])   # [B, T, Di]
+    dt = constrain(dt, BATCH_AXES, None, TP_AXIS)
     a = -torch.exp(params["a_log"].float())                      # [Di, Ds]
     xf = xi.float()
     dtx = dt * xf
 
-    h = (torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device)
-         if ssm_state is None else ssm_state).to(sdt)
+    if ssm_state is None:
+        ssm_state = constrain(torch.zeros((bsz, di, ds), dtype=torch.float32, device=x.device),
+                              BATCH_AXES, TP_AXIS, None)
+    h = ssm_state.to(sdt)
     l = min(chunk, t)
     ys = []
     for c0 in range(0, t, l):               # one chunk's [B, L, Di, Ds] at a time
@@ -132,8 +144,8 @@ def mamba(params, x: torch.Tensor, cfg, *,
         h_all, h = _ssm_chunk_scan(decay, bu, h, l)
         ys.append(torch.einsum("btis,bts->bti", h_all.float(), c_ssm[:, sl]))
     y = torch.cat(ys, dim=1) + params["d_skip"] * xf
-    y = y.to(cdt) * F.silu(z)
-    out = y @ params["out_proj"].to(cdt)
+    y = constrain(y.to(cdt) * F.silu(z), BATCH_AXES, None, TP_AXIS)
+    out = constrain(y @ params["out_proj"].to(cdt), BATCH_AXES, None, None)
     if return_state:
         return out, (conv_state_new, h.float())
     return out

@@ -15,11 +15,19 @@ Layout (one directory per step)::
   thread; training continues, `wait()` joins before the next save.
 * **Retention**: keep the last `keep` committed steps, delete older.
 
-The port's ``repro.train.checkpoint`` — the part the reduct service needs
-(``_atomic_write`` and :class:`CheckpointManager`).  The on-disk layout is
-the JAX manager's: the same files, array keys and manifest fields, so each
-manager reads the other's steps.  Leaves may be numpy arrays or tensors
-(copied to the host with ``.cpu()`` on the saving thread).
+The port's ``repro.train.checkpoint``.  The on-disk layout is the JAX
+manager's: the same files, array keys and manifest fields, so each manager
+reads the other's steps.  Leaves may be numpy arrays or tensors (copied to
+the host with ``.cpu()`` on the saving thread).
+
+* **Sharded saves**: a tree holding DTensors (a sharded train state) is
+  gathered to full arrays on every rank (a collective: every rank calls
+  ``save``) and written once per world, by rank 0; a blocking save ends at
+  a barrier, so every rank then sees the committed step.
+* **Elastic restore**: ``restore(shardings=)`` places each leaf by its
+  sharding (a tree of ``NamedSharding`` or ``None``, like the state) on
+  whatever mesh the sharding names, so a checkpoint written on one mesh
+  restores on another.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -83,6 +93,8 @@ def _unflatten(flat: Dict[str, Any]) -> Pytree:
 
 
 def _to_host(v) -> np.ndarray:
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -99,9 +111,17 @@ class CheckpointManager:
     def save(self, step: int, tree: Pytree, *, extra: Optional[dict] = None,
              blocking: bool = True) -> str:
         flat = _flatten(tree)
+        sharded = any(isinstance(v, DTensor) for v in flat.values())
         host = {k: _to_host(v) for k, v in flat.items()}  # device → host copy
+        if sharded and dist.get_rank() != 0:              # written once per world
+            if blocking:
+                dist.barrier()
+            return self._path(step)
         if blocking:
-            return self._write(step, host, extra or {})
+            out = self._write(step, host, extra or {})
+            if sharded:
+                dist.barrier()
+            return out
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True
@@ -185,10 +205,12 @@ class CheckpointManager:
             flat = {k: npz[k] for k in manifest["keys"]}
         return flat, manifest
 
-    def restore(self, step: Optional[int] = None, *,
-                device: Optional[DeviceLike] = None) -> Tuple[int, Pytree, dict]:
+    def restore(self, step: Optional[int] = None, *, device: Optional[DeviceLike] = None,
+                shardings: Optional[Pytree] = None) -> Tuple[int, Pytree, dict]:
         """Returns (step, tree, extra).  The tree's leaves are numpy arrays,
-        or tensors on ``device`` when one is given.
+        or tensors on ``device`` when one is given; a leaf whose entry in
+        ``shardings`` (same structure) is a ``NamedSharding`` is placed by it,
+        a DTensor on its mesh's device.
 
         With ``step=None`` (auto-pick), a truncated or corrupt step — partial
         write that still got committed, bit rot, manual tampering — is
@@ -222,4 +244,8 @@ class CheckpointManager:
         if device is not None:
             dev = resolve_device(device)
             flat = {k: torch.as_tensor(v).to(dev) for k, v in flat.items()}
+        if shardings is not None:
+            flat_sh = _flatten(shardings)
+            flat = {k: (v if flat_sh.get(k) is None else flat_sh[k].place(
+                torch.as_tensor(v).to(flat_sh[k].mesh.device))) for k, v in flat.items()}
         return step, _unflatten(flat), manifest.get("extra", {})

@@ -11,6 +11,11 @@ Trees are dicts of tensors keyed like ``named_parameters()``.  The port
 updates parameters and moments in place (a full-width model's f32 moments
 alone are ~9 GB; JAX donates its buffers to the same end) and returns them
 with a new step count.
+
+Sharded trees (DTensors, gradients in their parameters' placements): the
+moments are made in the parameters' placements, the clipping norm is the
+global one (:func:`global_sq_norm`), and the update runs on each rank's
+local shards, elementwise, so it equals the unsharded update.
 """
 from __future__ import annotations
 
@@ -19,12 +24,39 @@ import math
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.config import torch_dtype
 
 Tree = Dict[str, torch.Tensor]
 
-__all__ = ["AdamW", "AdamWState", "constant_schedule", "cosine_schedule"]
+__all__ = ["AdamW", "AdamWState", "constant_schedule", "cosine_schedule", "global_sq_norm"]
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_sq_norm(grads: Tree) -> torch.Tensor:
+    """Σ g² over every element of every gradient, in f32.  A DTensor counts
+    each of its elements once: its local sum, on the ranks at coordinate 0
+    of every mesh dim it is replicated over (zero elsewhere), summed by one
+    ``all_reduce`` over the world."""
+    total, sharded = None, False
+    for g in grads.values():
+        loc = _local(g).float()
+        part = torch.sum(loc * loc)
+        if isinstance(g, DTensor):
+            sharded = True
+            mesh = g.device_mesh
+            coords = mesh.get_coordinate()
+            if any(isinstance(p, Replicate) and c != 0 for p, c in zip(g.placements, coords)):
+                part = torch.zeros_like(part)
+        total = part if total is None else total + part
+    if sharded:
+        dist.all_reduce(total)
+    return total
 
 
 class AdamWState(NamedTuple):
@@ -45,7 +77,7 @@ class AdamW:
 
     def init(self, params: Tree) -> AdamWState:
         dt = torch_dtype(self.moment_dtype)
-        zeros = lambda: {k: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+        zeros = lambda: {k: torch.zeros_like(p, dtype=dt)  # noqa: E731
                          for k, p in params.items()}
         device = next(iter(params.values())).device
         return AdamWState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
@@ -55,7 +87,7 @@ class AdamW:
                ) -> Tuple[Tree, AdamWState, torch.Tensor]:
         """Returns (params, new_state, grad_norm); ``params`` and the
         moments are updated in place."""
-        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads.values()))
+        gnorm = torch.sqrt(global_sq_norm(grads))
         scale = None
         if self.grad_clip:
             scale = torch.clamp_max(self.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -64,10 +96,10 @@ class AdamW:
         c1 = 1.0 - self.b1 ** step.float()
         c2 = 1.0 - self.b2 ** step.float()
         for key, p in params.items():
-            g = grads[key].float()
+            g = _local(grads[key]).float()
             if scale is not None:
                 g = g * scale
-            m, v = state.m[key], state.v[key]
+            p, m, v = _local(p), _local(state.m[key]), _local(state.v[key])
             mf = self.b1 * m.float() + (1 - self.b1) * g
             vf = self.b2 * v.float() + (1 - self.b2) * g * g
             mh = mf / c1

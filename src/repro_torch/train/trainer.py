@@ -1,6 +1,6 @@
-"""Training loop: train step, grad accumulation, fault tolerance.
+"""Training loop: sharded train step, grad accumulation, fault tolerance.
 
-The port's ``repro.train.trainer``, on one device:
+The port's ``repro.train.trainer``:
 
 * **Train step** — ``make_train_step``: the model's loss, its gradient by
   autograd (``torch.autograd.grad``; attention and RWKV6 go through their
@@ -21,7 +21,15 @@ The port's ``repro.train.trainer``, on one device:
 * **Straggler mitigation** — per-step wall time EMA (the first step never
   seeds it); steps slower than ``straggler_factor ×`` EMA are recorded.
 
-Sharded training (``mesh=``) is not ported yet (ROADMAP §1 item 8).
+* **Sharded step** (``mesh=``, one process a rank, every rank running the
+  same loop on the same data): the parameters and AdamW moments are DTensors
+  placed by the model's ``param_shardings`` (``state_shardings``), each
+  microbatch is placed over the batch axes (``batch_sharding``), and the step
+  runs under ``use_mesh``.  Gradients come back in the parameters'
+  placements; the clipping norm is the global one, every element counted
+  once (a replicated shard on the ranks at coordinate 0 of its replicated
+  axes only, one ``all_reduce`` over the world); AdamW then updates each
+  rank's local shards.  Checkpoints are gathered and written once per world.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.api import (BATCH_AXES, P, place_like, shard_by_shape,
+                                        sharding_for, unshard, use_mesh)
 from repro_torch.models import build_model
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.convert import params_from_jax, params_to_jax
@@ -79,21 +89,31 @@ class TrainState:
                           AdamWState(tree["opt_step"], tree["opt_m"], tree["opt_v"]))
 
 
-def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1) -> Callable:
+def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1, mesh=None) -> Callable:
     """(state, batch) → (state, metrics).  ``state["params"]`` are the
     model's own parameters (made trainable here); the step updates them and
     the moments in place.  ``batch`` is a dict of arrays or tensors (moved to
-    the model's device), split into ``microbatches`` along the batch axis."""
+    the model's device), split into ``microbatches`` along the batch axis.
+    With a ``mesh`` (the model's parameters placed on it) the step runs
+    under ``use_mesh`` and each microbatch is placed over the batch axes."""
     model.requires_grad_(True)
 
     def grads_of(params: Dict[str, torch.Tensor], batch):
-        loss, metrics = model.loss(batch)
-        return dict(zip(params, torch.autograd.grad(loss, list(params.values())))), metrics
+        if mesh is not None:
+            batch = {k: shard_by_shape(P(BATCH_AXES), v.shape, mesh).place(v)
+                     for k, v in batch.items()}
+        with use_mesh(mesh):
+            loss, metrics = model.loss(batch)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        # each gradient in its parameter's placements
+        grads = [place_like(g, p) for g, p in zip(grads, params.values())]
+        return dict(zip(params, grads)), {k: unshard(v) for k, v in metrics.items()}
 
     def train_step(state: State, batch: Mapping[str, Any]):
         params = state["params"]
         opt_state = AdamWState(state["opt_step"], state["opt_m"], state["opt_v"])
-        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+        dev = mesh.device if mesh is not None else model.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if microbatches > 1:
             gsum, per_micro = None, []
             for i in range(microbatches):
@@ -125,15 +145,17 @@ class Trainer:
 
     def __init__(self, arch_cfg: ArchConfig, train_cfg: TrainConfig, mesh=None, *,
                  device: DeviceLike = "cuda", seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded training (mesh=) is not ported yet (ROADMAP §1 item 8)")
+        """``mesh``: a :class:`repro_torch.distributed.Mesh` to train sharded
+        on (its rank's device then overrides ``device``)."""
         self.cfg = arch_cfg
         self.tc = train_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.seed = seed
         self.model = build_model(arch_cfg, device=self.device,
                                  generator=torch.Generator().manual_seed(seed))
+        if mesh is not None:
+            self.model.shard(mesh)
         self.optimizer = AdamW(
             lr=cosine_schedule(train_cfg.peak_lr, train_cfg.warmup_steps,
                                train_cfg.total_steps),
@@ -147,6 +169,31 @@ class Trainer:
         self.step_times: list = []
         self.straggler_steps: list = []
 
+    # -- sharding ----------------------------------------------------------
+    def state_shardings(self):
+        """The state's shardings (``None`` without a mesh): the parameters'
+        for the parameters and both moments, replicated for the step."""
+        if self.mesh is None:
+            return None
+        psh = self.model.param_shardings(self.mesh)
+        return {"params": psh, "opt_m": psh, "opt_v": psh,
+                "opt_step": sharding_for(P(), self.mesh)}
+
+    def batch_sharding(self):
+        if self.mesh is None:
+            return None
+        return sharding_for(P(BATCH_AXES), self.mesh)
+
+    def _load_params(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Full parameter values (every rank the same) into the model, each
+        rank keeping its shard."""
+        if self.mesh is None:
+            self.model.load_state_dict(state)
+            return
+        with torch.no_grad():
+            for key, p in self.model.named_parameters():
+                p.copy_(place_like(state[key].to(self.device, p.dtype), p))
+
     # -- lifecycle -----------------------------------------------------------
     def init_state(self, seed: Optional[int] = None) -> State:
         """Fresh state: the model's parameters drawn again from ``seed`` (the
@@ -154,26 +201,31 @@ class Trainer:
         seed = self.seed if seed is None else seed
         fresh = build_model(self.cfg, device=self.device,
                             generator=torch.Generator().manual_seed(seed))
-        self.model.load_state_dict(fresh.state_dict())
+        self._load_params(fresh.state_dict())
         del fresh
         params = dict(self.model.named_parameters())
         opt = self.optimizer.init(params)
         return {"params": params, "opt_m": opt.m, "opt_v": opt.v, "opt_step": opt.step}
 
     def state_to_tree(self, state: State) -> Dict[str, Any]:
-        """The state as JAX's checkpoint tree: numpy leaves, stacked blocks."""
+        """The state as JAX's checkpoint tree: numpy leaves, stacked blocks
+        (full arrays: a sharded leaf is gathered, a collective)."""
         cfg = self.cfg
-        return {"params": params_to_jax(cfg, state["params"]),
-                "opt_m": params_to_jax(cfg, state["opt_m"]),
-                "opt_v": params_to_jax(cfg, state["opt_v"]),
+
+        def full(tree):
+            return {k: unshard(v) for k, v in tree.items()}
+        return {"params": params_to_jax(cfg, full(state["params"])),
+                "opt_m": params_to_jax(cfg, full(state["opt_m"])),
+                "opt_v": params_to_jax(cfg, full(state["opt_v"])),
                 "opt_step": np.asarray(int(state["opt_step"]), np.int32)}
 
     def state_from_tree(self, tree: Mapping[str, Any]) -> State:
         """Load a checkpoint tree (either package's) into the model's
-        parameters; the moments come to the device in their stored dtype."""
-        self.model.load_state_dict(params_from_jax(self.cfg, tree["params"]))
+        parameters; the moments come to the device in their stored dtype
+        (under a mesh each placed like its parameter)."""
+        self._load_params(params_from_jax(self.cfg, tree["params"]))
         params = dict(self.model.named_parameters())
-        moments = {name: {k: t.to(self.device) for k, t in
+        moments = {name: {k: place_like(t.to(self.device), params[k]) for k, t in
                           params_from_jax(self.cfg, tree[name]).items()}
                    for name in ("opt_m", "opt_v")}
         step = torch.as_tensor(np.asarray(tree["opt_step"]), dtype=torch.int32,
@@ -182,7 +234,8 @@ class Trainer:
 
     @cached_property
     def step_fn(self):
-        return make_train_step(self.model, self.optimizer, microbatches=self.tc.microbatches)
+        return make_train_step(self.model, self.optimizer, microbatches=self.tc.microbatches,
+                               mesh=self.mesh)
 
     def install_preemption_handler(self):
         def handler(signum, frame):
@@ -239,8 +292,9 @@ class Trainer:
             should_ckpt = self.ckpt is not None and (
                 step % self.tc.ckpt_every == 0 or step == total or self._preempted)
             if should_ckpt:
-                self.ckpt.save(step, self.state_to_tree(state), extra={"arch": self.cfg.name},
-                               blocking=False)
+                tree = self.state_to_tree(state)       # every rank: a gather under a mesh
+                if self.mesh is None or self.mesh.rank == 0:
+                    self.ckpt.save(step, tree, extra={"arch": self.cfg.name}, blocking=False)
             if self._preempted:
                 if self.ckpt is not None:
                     self.ckpt.wait()

@@ -112,15 +112,18 @@ def test_moe_matches_jax(arch, case):
 
 
 def test_moe_expert_parallel_options_raise():
-    cfg, _, params = layer_params("qwen3-moe-235b-a22b", 0, "ffn")
-    x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        moe(torch_params(params), x, dataclasses.replace(cfg, moe_weight_stationary=True))
-
-    class TwoModelShards:
-        n_model = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        moe(torch_params(params), x, cfg, mesh=TwoModelShards())
+    """The expert-parallel options run: ``moe_weight_stationary`` without a
+    mesh takes the local path, JAX's selection (``moe.py:220-231``), equal
+    to JAX's ``moe`` with the option on; the mesh paths are held on gloo
+    ranks by ``test_torch_lm_distributed_moe.py``."""
+    cfg, j_cfg, params = layer_params("qwen3-moe-235b-a22b", 0, "ffn")
+    x = np.random.default_rng(2).standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    ws = dataclasses.replace(cfg, moe_weight_stationary=True)
+    j_ws = dataclasses.replace(j_cfg, moe_weight_stationary=True)
+    want = j_moe({k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x), j_ws)
+    got = moe(torch_params(params), torch.from_numpy(x), ws)
+    close(got, want, "moe with moe_weight_stationary, no mesh")
+    assert torch.equal(got, moe(torch_params(params), torch.from_numpy(x), cfg))
 
 
 def _jax_mamba(j_cfg, params, x, **kw):

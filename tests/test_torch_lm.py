@@ -229,16 +229,18 @@ def test_params_from_jax_takes_a_jax_init_tree(arch):
 
 def test_configs_resolve_and_every_family_builds():
     """Every config equals JAX's and builds the JAX package's model class;
-    the MoE weight-stationary serving option raises naming its ROADMAP item
-    instead of taking the local path."""
+    the MoE weight-stationary serving option builds, and without a mesh
+    takes the local path, as JAX's (the same logits as the option off)."""
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
         model = build_model(get_config(arch).reduced(), device="cpu")
         assert type(model).__name__ == type(j_build_model(j_get_config(arch).reduced())).__name__
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (2, 9)))
     for arch in ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"):
-        cfg = dataclasses.replace(get_config(arch).reduced(), moe_weight_stationary=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-            build_model(cfg, device="cpu")
+        cfg = get_config(arch).reduced()
+        ws = build_model(dataclasses.replace(cfg, moe_weight_stationary=True), device="cpu")
+        with torch.inference_mode():
+            assert torch.equal(ws(toks), build_model(cfg, device="cpu")(toks)), arch
     base = build_model(get_config("tinyllama-1.1b").reduced(), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(4).integers(0, base.cfg.vocab, (2, 11)))
     with torch.inference_mode():

@@ -241,21 +241,11 @@ def test_cli_ensemble_matches_jax_cli(capsys, monkeypatch):
     assert "not supported with --ensemble" in capsys.readouterr().err
 
 
-# Names of a reference ``__all__`` that ROADMAP §1 item 8 still owes the
-# port, one list a subpackage.  Each is an expected gap: once item 8 ports
-# one (it appears in the port's module), it must also be exported, or the
-# test below fails.
-PENDING_EXPORTS = {
-    "distributed": [
-        # (a) the sharding half of distributed/api.py
-        "BATCH_AXES", "FSDP_AXIS", "TP_AXIS", "active_mesh", "axis_size", "batch_spec",
-        "constrain", "mesh_batch_shards", "resolve_spec", "shard_map", "sharding_for",
-        "use_mesh",
-        # (b) distributed/compression.py and distributed/pipeline_parallel.py
-        "compressed_grad_mean", "compressed_psum_mean", "dequantize_int8",
-        "init_error_state", "quantize_int8", "pipeline_apply", "pipeline_loss",
-    ],
-}
+# Names of a reference ``__all__`` that the port still owes, one list a
+# subpackage.  Each is an expected gap: once one is ported (it appears in the
+# port's module), it must also be exported, or the test below fails.  Empty
+# since LM distribution (ROADMAP §1 item 8 (a)-(c)) was ported.
+PENDING_EXPORTS = {}
 SHARED_SUBPACKAGES = ("core", "service", "kernels.contingency", "kernels.flash_attention",
                       "kernels.rwkv6", "models", "serving", "train", "data", "obs",
                       "distributed", "launch")
@@ -292,7 +282,8 @@ def test_port_imports_no_jax_or_repro(tmp_path):
     one query served through a CPU ``ReductServer``, LM serving of every
     family (the dense, RWKV6, MoE and Mamba-hybrid engines, a VLM prefill
     with frontend features, an enc-dec prefill and decode), one reduced
-    training step, and the mesh driver on two
+    training step, one sharded training step on two spawned gloo ranks
+    (the LM distribution modules imported), and the mesh driver on two
     spawned gloo ranks) leaves
     jax and repro out of sys.modules.  ``jax`` and ``repro`` are made
     unimportable for the process and its ranks, so a rank that imports
@@ -374,6 +365,9 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "state, hist = repro_torch.launch.train.main(['--arch', 'rwkv6-3b', '--smoke',\n"
         "    '--steps', '1', '--global-batch', '2', '--seq-len', '8', '--device', 'cpu'])\n"
         "assert int(state['opt_step']) == 1 and np.isfinite(hist[-1]['loss'])\n"
+        "import repro_torch.distributed.compression, repro_torch.distributed.pipeline_parallel\n"
+        "repro_torch.launch.train.main(['--arch', 'tinyllama-1.1b', '--smoke', '--steps', '1',\n"
+        "    '--global-batch', '2', '--seq-len', '8', '--device', 'cpu', '--mesh', '2,1'])\n"
         "from repro_torch.launch import reduce as cli\n"
         "flags = ['--dataset', 'mushroom', '--max-rows', '300', '--max-attrs', '6',\n"
         "         '--delta', 'PR', '--device', 'cpu']\n"
