@@ -295,6 +295,30 @@ line):
     ``pipeline_apply`` over a one-stage ``pipe`` mesh equal to ``stage_fn``.
     Prints the phase's seconds.
 
+The dry-run slice adds, after phase 18 (before the ``kernels`` line):
+
+19. model_vs_card: (a) the dry-run's counting
+    (``launch.roofline.StepCounter``, ``launch.dryrun.count_step``) on
+    one step the card can also run: tinyllama-1.1b at full width and depth
+    (22 layers, bf16, seeded), one ``make_train_step`` of 2 x 2,048 tokens
+    (``launch.specs.make_train_setup``) on mesh (1, 1), first modelled (a
+    fake world of one rank, the ``meta`` device, the kernels' twins), then
+    on a world of one NCCL rank for real under the same counter: the flash
+    twin's calls equal the real step's flash launches, and the counted
+    operations and bytes are equal both ways; the modelled
+    ``total_hbm_bytes`` is printed beside the measured
+    ``max_memory_allocated`` above the memory allocated before the step's
+    setup, and their ratio; (b) the four benches
+    (``launch.bench_serve``, ``bench_chaos``, ``bench_obs``,
+    ``bench_ingest``) at the JAX benchmarks' preset sizes on the card:
+    every correctness guarantee asserted, each wall-clock ratio printed
+    beside JAX's bound with ``bound_met`` (bounds set on a CPU: a miss does
+    not fail the phase); (c) ``examples/pt_serve_lm.py`` on the card: flash
+    launches > 0 and its tokens equal the port's ``ServingEngine`` called
+    directly on the same seeded weights; (d) one LM dry-run cell end to end
+    through the CLI (rwkv6-3b, long_500k, single pod) in a process of its
+    own: ``status: ok`` and its seconds.
+
 Kernel times in the ``kernels`` line: the contingency kernels at n_bins =
 1,310,720 with uniform r, Θ_PR, launches from phase 4 (fused Θ also at K ∈
 {1, 1,024}); flash (the bf16 tensor-core kernel) at S = 2,048, Dh 64, and
@@ -309,7 +333,8 @@ wrapper and of the plain version's autograd at the shapes of 13 (a).
 Flash also carries ``families_launches``, its launches by model in phase
 14, and ``families_rows``, phase 6's two rows of the families slice.
 Flash and RWKV6 carry ``mesh_launches``, their launches on phase 18's mesh
-path ((a)'s sharded steps; (b)'s sharded serving, by path).  The
+path ((a)'s sharded steps; (b)'s sharded serving, by path).  Flash also
+carries ``model_vs_card``: phase 19 (a)'s twin calls and real launches.  The
 three contingency kernels carry ``tiles`` (phase 16's picks by selector)
 and ``tiles_ms`` (their times there): ``analytic_tiles``/``analytic_ms``
 and ``pinned_ms`` beside them.
@@ -419,6 +444,8 @@ MESH_LM = dict(  # phase 18 on a world of one NCCL rank: full width, depth cut
               cache_len=1_040),
     moe=dict(arch="qwen3-moe-235b-a22b", batch=2, prompt=256, new_tokens=8, cache_len=512),
     compress_n=4_096, pipe=dict(M=4, mb=2, D=256))
+MODEL_CARD = dict(arch="tinyllama-1.1b", global_batch=2, seq_len=2_048)  # phase 19 (a)
+DRYRUN_CELL = ("rwkv6-3b", "long_500k", "single")       # phase 19 (d), through the CLI
 MESH_RUNS = [  # (delta, collective, engine) of phase 12 on the kdd99 granularity
     ("PR", "all_reduce", "host"), ("PR", "all_reduce", "device"),
     ("PR", "reduce_scatter", "host"), ("PR", "reduce_scatter", "device"),
@@ -2661,6 +2688,164 @@ def phase_mesh_lm(torch, lm, card: str) -> dict:
         dist.destroy_process_group()
 
 
+def _model_vs_card(torch, fa) -> dict:
+    """Phase 19 (a): one training step counted modelled, then for real."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import init_process_group, make_mesh
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = get_config(MODEL_CARD["arch"])
+    shape = ShapeConfig("train_2x2048", MODEL_CARD["seq_len"], MODEL_CARD["global_batch"],
+                        "train")
+    t0 = time.perf_counter()
+    with dryrun.fake_world((1, 1), ("data", "model")) as mesh:
+        fn, args, _, _ = specs.make_setup(cfg, shape, mesh)
+        modelled = dryrun.count_step(fn, args)
+        del fn, args
+    model_s = time.perf_counter() - t0
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_model_card_")) / "store"
+    init_process_group("cuda", rank=0, world_size=1, store_path=str(store), timeout_s=300)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn, args, _, _ = specs.make_setup(cfg, shape, mesh)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        real = dryrun.count_step(fn, args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        measured = torch.cuda.max_memory_allocated() - base
+        launches = fa.launch_counts()
+        del fn, args
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = modelled["memory"]["total_hbm_bytes"]
+    out = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.param_dtype,
+               tokens=f"{shape.global_batch} x {shape.seq_len}", mesh=[1, 1],
+               modelled_s=model_s, step_s=step_s,
+               flash_twin_calls=modelled["modelled"]["flash_attention"],
+               flash_launches=launches["flash_attention"],
+               flops=dict(modelled=modelled["flops"], real=real["flops"]),
+               bytes=dict(modelled=modelled["bytes"], real=real["bytes"]),
+               convert_bytes=dict(modelled=modelled["convert_bytes"],
+                                  real=real["convert_bytes"]),
+               collectives=dict(modelled=modelled["calls"], real=real["calls"]),
+               ops=dict(modelled=modelled["ops"], real=real["ops"]),
+               memory_modelled=modelled["memory"], counted_peak_real=real["memory"],
+               total_hbm_bytes=total, measured_peak_bytes=measured,
+               modelled_over_measured=total / measured)
+    if not (out["flash_twin_calls"] == out["flash_launches"] > 0):
+        raise AssertionError(f"phase 19 (a): {out['flash_twin_calls']} flash twin calls, "
+                             f"{out['flash_launches']} launches on the card")
+    for key in ("flops", "bytes"):
+        if out[key]["modelled"] != out[key]["real"]:
+            raise AssertionError(f"phase 19 (a): counted {key} differ: {out[key]}, "
+                                 f"ops {out['ops']}")
+    return out
+
+
+def _benches(torch, card: str) -> dict:
+    """Phase 19 (b): the four benches at the JAX presets' sizes on the card."""
+    from repro_torch.launch import bench_chaos, bench_common, bench_ingest, bench_obs
+    from repro_torch.launch import bench_serve
+
+    presets = ((bench_serve, ["serve_batched_vs_single_flight", "serve_dedup_and_admission"]),
+               (bench_chaos, list(bench_chaos.SECTIONS)),
+               (bench_obs, list(bench_obs.SECTIONS)),
+               (bench_ingest, ["ingest_stream_vs_monolithic"]))
+    out = {}
+    for mod, sections in presets:
+        name = mod.__name__.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        results = {sec: mod.SECTIONS[sec](device="cuda") for sec in sections}
+        bounds = bench_common.check_bounds(mod.BOUNDS, results)
+        out[name] = dict(rows=results, bounds=bounds, seconds=time.perf_counter() - t0)
+        emit({"phase": "model_vs_card_bench", "bench": name, "card": card,
+              "seconds": out[name]["seconds"], "bounds": bounds})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_example(torch, fa) -> dict:
+    """Phase 19 (c): the serving example on the card against the engine."""
+    import runpy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    ex = runpy.run_path(str(Path(__file__).resolve().parent / "examples" / "pt_serve_lm.py"),
+                        run_name="pt_serve_lm")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = ex["main"](["--device", "cuda", "--ckpt-dir", str(Path(tempfile.gettempdir()) /
+                                                              "no_checkpoint")])
+    seconds = time.perf_counter() - t0
+    launches = fa.launch_counts()["flash_attention"]
+    cfg = get_config("gemma-2b").reduced()          # the example's default arch, seeded
+    engine = ServingEngine(cfg, build_model(cfg, device="cuda"), max_batch=4,
+                           cache_len=ex["CACHE_LEN"], device="cuda")
+    direct = engine.serve(ex["requests"](cfg, len(done)))
+    out = dict(arch=cfg.name, requests=len(done), seconds=seconds, flash_launches=launches,
+               tokens=sum(len(r.output) for r in done),
+               tokens_equal=[r.output for r in done] == [r.output for r in direct])
+    if not (launches > 0 and out["tokens_equal"]):
+        raise AssertionError(f"phase 19 (c): {out}")
+    return out
+
+
+def _dryrun_cli(card: str) -> dict:
+    """Phase 19 (d): one LM dry-run cell through the CLI, in its own process."""
+    arch, shape, mesh = DRYRUN_CELL
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    src = Path(__file__).resolve().parent / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                        "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
+                       env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"phase 19 (d): the dry-run CLI failed: {p.stderr[-3000:]}")
+    rec = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"phase 19 (d): {rec.get('status')}: {rec}")
+    return dict(arch=arch, shape=shape, mesh=mesh, status=rec["status"], seconds=seconds,
+                count_s=rec["count_s"], chips=rec["chips"],
+                memory_per_device=rec["memory_per_device"],
+                flops_per_device=rec["flops_per_device"],
+                bytes_per_device=rec["bytes_per_device"], roofline=rec["roofline"],
+                modelled_calls=rec["kernels"]["modelled_calls"])
+
+
+def phase_model_vs_card(torch, fa, card: str) -> dict:
+    """Phase 19: the dry-run's model against the card, the benches, the
+    serving example and one dry-run cell through its CLI."""
+    t0 = time.perf_counter()
+    out = {"train": _model_vs_card(torch, fa)}
+    emit({"phase": "model_vs_card_train", "card": card, **out["train"]})
+    out["benches"] = _benches(torch, card)
+    out["serve_example"] = _serve_example(torch, fa)
+    emit({"phase": "model_vs_card_serve_example", "card": card, **out["serve_example"]})
+    out["dryrun_cli"] = _dryrun_cli(card)
+    emit({"phase": "model_vs_card_dryrun_cli", "card": card, **out["dryrun_cli"]})
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "model_vs_card", "card": card, "seconds": out["seconds"]})
+    return out
+
+
 def phase_paper(torch, ops, plar_reduce, resolve_granularity, scaled_paper_dataset,
                 card: str) -> dict:
     """Phase 17: the paper's tables, the full sdss stand-in on every Θ
@@ -2760,6 +2945,7 @@ def main() -> None:
     report["paper"] = phase_paper(torch, ops, plar_reduce, resolve_granularity,
                                   scaled_paper_dataset, smi)
     report["mesh_lm"] = phase_mesh_lm(torch, lm, smi)
+    report["model_vs_card"] = phase_model_vs_card(torch, fa, smi)
     shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
 
     top = N_BINS[-1]
@@ -2815,6 +3001,8 @@ def main() -> None:
         "train_ms": train_rows["flash_attention"]["fwd_bwd_ms"],
         "train_plain_ms": train_rows["flash_attention"]["plain_fwd_bwd_ms"],
         "mesh_launches": report["mesh_lm"]["train"]["mesh"]["launches"]["flash_attention_tc"],
+        "model_vs_card": {k: report["model_vs_card"]["train"][k]
+                          for k in ("flash_twin_calls", "flash_launches")},
     })
     rwkv_rows = [r for r in report["lm_kernels_vs_plain"]["rows"] if r["kernel"] == "rwkv6"]
     rwkv_launches = report["serving"]["rwkv6-3b"]["launches"]

@@ -71,7 +71,8 @@ from repro_torch.device import DeviceLike, resolve_device
 __all__ = ["Mesh", "make_mesh", "init_process_group", "spawn", "DATA_AXES", "MODEL_AXIS",
            "BATCH_AXES", "FSDP_AXIS", "TP_AXIS", "P", "NamedSharding", "active_mesh",
            "use_mesh", "resolve_spec", "placements", "sharding_for", "shard_by_shape", "fit_entry",
-           "constrain", "place_like", "replicate_like", "local_op", "stack", "batch_spec", "axis_size", "mesh_batch_shards", "shard_map",
+           "constrain", "place_like", "replicate_like", "local_op", "grad_in_placements",
+           "stack", "batch_spec", "axis_size", "mesh_batch_shards", "shard_map",
            "axis_index", "psum", "pmax", "all_gather", "unshard"]
 
 # The PLAR mesh's axes: granules shard over the data axes, candidates over
@@ -176,8 +177,10 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
                     model_group = g
     _, data_index, model_index = (int(v[0]) for v in np.nonzero(grid == rank))
     coords = {a: int(c) for a, c in zip(axis_names, np.unravel_index(rank, shape))}
-    device_mesh = DeviceMesh(dev.type, torch.arange(world).reshape(shape),
-                             mesh_dim_names=axis_names)
+    # the dry-run's modelled card (``meta`` tensors) keeps a CUDA DeviceMesh:
+    # DTensor's sharding propagation asks the mesh's device type for its handle
+    device_mesh = DeviceMesh("cuda" if dev.type == "meta" else dev.type,
+                             torch.arange(world).reshape(shape), mesh_dim_names=axis_names)
     return Mesh(axis_names=axis_names, shape=dict(zip(axis_names, shape)), device=dev,
                 rank=rank, coords=coords, data_axes=data_axes, n_data=grid.shape[1],
                 n_model=n_model, data_index=data_index, model_index=model_index,
@@ -403,8 +406,28 @@ class NamedSharding:
         rank, and each rank keeps its shard of it (no communication)."""
         return _place(x, self.mesh.device_mesh, self.placements)
 
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """This rank's local shape of a global ``shape`` (JAX's
+        ``NamedSharding.shard_shape``; an uneven split gives rank 0's, the
+        larger, as DTensor does)."""
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            for a in () if entry is None else _axes(entry):
+                out[d] = -(-out[d] // self.mesh.shape[a])
+        return tuple(out)
+
 
 def _place(x: torch.Tensor, dm: DeviceMesh, pl: Sequence) -> DTensor:
+    if (not isinstance(x, DTensor) and x.device.type == "meta"
+            and any(isinstance(p, Shard) for p in pl)):
+        # the dry-run's modelled card: a meta value has no data to split, so
+        # the rank's shard is made at its own size (not a view of the global)
+        local = list(x.shape)
+        for p, n in zip(pl, dm.shape):
+            if isinstance(p, Shard):
+                local[p.dim] = -(-local[p.dim] // n)
+        return DTensor.from_local(torch.empty(local, dtype=x.dtype, device=x.device), dm, pl,
+                                  run_check=False, shape=x.shape, stride=x.stride())
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim, run_check=False)
     if tuple(x.placements) == tuple(pl):
@@ -473,6 +496,18 @@ def local_op(fn, x: torch.Tensor, *, shift: int = 0) -> torch.Tensor:
         return fn(x)
     pl = [Shard(p.dim + shift) if isinstance(p, Shard) else p for p in x.placements]
     return DTensor.from_local(fn(x.to_local()), x.device_mesh, pl, run_check=False)
+
+
+def grad_in_placements(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, whose gradient is redistributed to ``x``'s placements on
+    the way back (a DTensor; a plain tensor is returned as it is).  DTensor
+    hands an op the gradient in the placements of whatever consumed its
+    output; a view that splits a dim into heads cannot take it sharded where
+    the heads do not divide the mesh axis."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:

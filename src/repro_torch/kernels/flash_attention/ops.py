@@ -28,22 +28,29 @@ give q, k and v no gradient.  :func:`mha` is JAX's dispatch by name.
 :data:`LAUNCHES` counts kernel launches (one per launch, nowhere else), so a
 run can show that it went through the kernels: ``flash_attention`` counts
 every launch, ``flash_attention_tc`` those of the tensor-core kernel.
+On ``meta`` operands (the dry-run's modelled card) the wrapper is a
+shape-only twin: an output like q, the call counted in :data:`MODELLED`.
+A launch and a twin both hand :func:`kernel_cost` to
+:func:`~repro_torch.kernels.launching.note_kernel`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import build
-from ..launching import on_cpu, stream
+from ..launching import modelled, note_kernel, on_cpu, stream
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "TC_HEAD_DIMS", "flash_attention", "flash_attention_diff",
-           "launch_counts", "mha", "reset_launch_counts", "takes_tensor_cores"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "MODELLED", "TC_HEAD_DIMS", "flash_attention",
+           "flash_attention_diff", "kernel_cost", "launch_counts", "mha", "modelled_counts",
+           "reset_launch_counts", "reset_modelled_counts", "takes_tensor_cores"]
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+MODELLED: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}   # twin calls
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the f32 kernel's compiled head widths
 TC_HEAD_DIMS = (64, 128, 256)       # the tensor-core kernel's (bf16 only)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,6 +67,31 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def reset_modelled_counts() -> None:
+    for name in MODELLED:
+        MODELLED[name] = 0
+
+
+def modelled_counts() -> Dict[str, int]:
+    return dict(MODELLED)
+
+
+def kernel_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                window: Optional[int]) -> Tuple[float, float]:
+    """(operations, bytes) of one forward: 4·Dh a visible (query, key) pair
+    and query head (q·k and p·v; the causal and window masks aligned to the
+    sequence end, as the kernel skips masked blocks), q, k, v read once and
+    the output written once."""
+    b, hq, sq, dh = q.shape
+    skv = k.shape[2]
+    pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(pos, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    pairs = float(np.clip(hi - lo + 1, 0, None).sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4.0 * b * hq * dh * pairs, float(nbytes)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -118,6 +150,13 @@ def flash_attention(
     """
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got {window}")
+    if modelled(q=q, k=k, v=v):          # the dry-run's twin: shapes and costs only
+        _check(q, k, v)
+        MODELLED["flash_attention"] += 1
+        if takes_tensor_cores(q.dtype, q.shape[3]):
+            MODELLED["flash_attention_tc"] += 1
+        note_kernel("flash_attention", lambda: kernel_cost(q, k, v, causal=causal, window=window))
+        return torch.empty_like(q)
     if on_cpu("flash_attention", q=q, k=k, v=v):
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     _check(q, k, v)
@@ -145,6 +184,7 @@ def flash_attention(
     LAUNCHES["flash_attention"] += 1
     if tc:
         LAUNCHES["flash_attention_tc"] += 1
+    note_kernel("flash_attention", lambda: kernel_cost(q, k, v, causal=causal, window=window))
     return out
 
 

@@ -20,7 +20,10 @@ tokens a chunk, the same function, which keeps one state a chunk.
 
 :data:`LAUNCHES` counts kernel launches (one per launch, nowhere else):
 ``rwkv6`` every launch, ``rwkv6_decode`` and ``rwkv6_chunked`` each path's,
-so a run can show that it went through both.
+so a run can show that it went through both.  On ``meta`` operands (the
+dry-run's modelled card) the wrapper is a shape-only twin (o and the final
+state, f32), counted in :data:`MODELLED`; a launch and a twin both hand
+:func:`kernel_cost` to :func:`~repro_torch.kernels.launching.note_kernel`.
 """
 from __future__ import annotations
 
@@ -31,13 +34,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import build
-from ..launching import on_cpu, stream
+from ..launching import modelled, note_kernel, on_cpu, stream
 from .ref import rwkv6_chunked_ref, rwkv6_ref
 
-__all__ = ["CHUNK", "HEAD_DIMS", "LAUNCHES", "chunk_split", "column_split",
-           "launch_counts", "reset_launch_counts", "rwkv6", "rwkv6_diff", "rwkv6_scan"]
+__all__ = ["CHUNK", "HEAD_DIMS", "LAUNCHES", "MODELLED", "chunk_split", "column_split",
+           "kernel_cost", "launch_counts", "modelled_counts", "reset_launch_counts",
+           "reset_modelled_counts", "rwkv6", "rwkv6_diff", "rwkv6_scan"]
 
 LAUNCHES: Dict[str, int] = {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}
+MODELLED: Dict[str, int] = {"rwkv6": 0, "rwkv6_decode": 0, "rwkv6_chunked": 0}  # twin calls
 HEAD_DIMS = (4, 8, 16, 32, 64)  # the kernels' compiled head widths
 CHUNK = 16  # tokens a chunk, compiled into the chunked kernel (kChunk): 16 beat 32 (PERF.md)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -51,6 +56,25 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def reset_modelled_counts() -> None:
+    for key in MODELLED:
+        MODELLED[key] = 0
+
+
+def modelled_counts() -> Dict[str, int]:
+    return dict(MODELLED)
+
+
+def kernel_cost(b: int, h: int, t: int, d: int) -> Tuple[float, float]:
+    """(operations, bytes) of one call over [B, H, T, D]: 7·D² a (b, h,
+    token) (kᵀv, its u-scaled copy and sum, r against it, the decay and the
+    state update), r, k, v, w, u and the initial state read once, the output
+    and the final state written once, all f32."""
+    flops = 7.0 * b * h * t * d * d
+    nbytes = 4.0 * (5 * b * h * t * d + h * d + 2 * b * h * d * d)
+    return flops, nbytes
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,7 +142,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     CUDA chunk length is :data:`CHUNK`, compiled in.
     ``interpret`` (Pallas's interpreter) is accepted and ignored.
     """
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError("rwkv6_scan: the raw kernel entry needs CUDA tensors "
                          "(rwkv6 runs the plain version on the CPU)")
     return _rwkv6_kernel(r, k, v, w, u, init_state)
@@ -129,6 +153,14 @@ def _rwkv6_kernel(r, k, v, w, u, init_state):
     tensors = dict(r=r, k=k, v=v, w=w, u=u)
     if init_state is not None:
         tensors["init_state"] = init_state
+    if modelled(**tensors):              # the dry-run's twin: shapes and costs only
+        b, h, t, d = r.shape
+        path = "rwkv6_decode" if t < CHUNK else "rwkv6_chunked"
+        MODELLED["rwkv6"] += 1
+        MODELLED[path] += 1
+        note_kernel("rwkv6", lambda: kernel_cost(b, h, t, d))
+        return (torch.empty_like(r, dtype=torch.float32),
+                torch.empty((b, h, d, d), dtype=torch.float32, device=r.device))
     if on_cpu("rwkv6", **tensors):
         return rwkv6_ref(r, k, v, w, u, init_state)
     if r.dim() != 4:
@@ -167,6 +199,7 @@ def _rwkv6_kernel(r, k, v, w, u, init_state):
         build.check(lib, err, f"{path} kernel launch")
     LAUNCHES["rwkv6"] += 1
     LAUNCHES[path] += 1
+    note_kernel("rwkv6", lambda: kernel_cost(b, h, t, d))
     return o, s_fin
 
 

@@ -1,22 +1,73 @@
-"""PLAR's production dry-run cell on the port (the port of ``repro.launch.dryrun --plar``).
+"""The production dry-run on the port (the port of ``repro.launch.dryrun``):
+every (arch × shape × mesh) LM cell, and PLAR's own cell.
 
+    python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --all --mesh both --out runs/dryrun
     python -m repro_torch.launch.dryrun --plar --mesh single|multi \
         [--collective all_reduce|reduce_scatter] [--table-dtype int32|int8] \
         [--fused-pack] [--out DIR] [--tag NAME] [--execute] [--device cuda|cpu]
 
-The cell is JAX's: one PLAR greedy iteration at SDSS scale, G 327,680
-granules x A 5,216 candidate attributes (320,000 x 5,201 padded to shard
-multiples), V 8, M 17 classes, K 64 classes of the reduct mid-loop (n_bins
-= K·V = 512), SCE; candidates over ``model``, granules over ``(pod,
-data)`` of :func:`~repro_torch.launch.mesh.make_production_mesh`: (16, 16)
-on one pod, (2, 16, 16) on two.  One rank's shard is G/n_data x A/n_model:
+``--all`` spawns one subprocess a cell and skips cells whose JSON exists
+(``--force`` reruns them), as JAX's.  ``--override k=v`` replaces an
+``ArchConfig`` field, ``--microbatches N`` splits train_4k's batch.
+
+**The LM cells** (:func:`run_cell`).  JAX lowers and compiles each cell for
+256 or 512 placeholder devices and reads XLA's memory and cost analyses
+and the HLO's collectives.  The port cannot compile for XLA: it runs the
+same step once, eagerly, as rank 0 of a fake world of
+:func:`~repro_torch.launch.mesh.make_production_mesh`'s size (PyTorch's
+``"fake"`` process-group backend: (16, 16) ``data × model``, or (2, 16, 16)
+``pod × data × model``), on the ``meta`` device
+(:func:`repro_torch.device.modelling`: full-size shapes, no memory), and
+counts what that rank would allocate, compute, move and communicate with
+:class:`~repro_torch.launch.roofline.StepCounter`.  The hand-written
+kernels run as shape-only twins that hand their analytic costs to the
+counter (counted in their ``MODELLED`` counters, never in ``LAUNCHES``).
+The record keeps JAX's keys:
+
+* ``memory_per_device``: ``argument_bytes`` (the rank's shards of the
+  step's arguments), ``output_bytes`` (of its results), ``temp_bytes`` (the
+  high-water mark of the storages the step allocates, less the results it
+  still holds at the end), ``alias_bytes`` (results that are arguments
+  updated in place: the donated state, as the port's train step updates
+  the parameters and moments in place, and the decode cache), and
+  ``total_hbm_bytes`` = arg + out + temp − alias.  Eager PyTorch frees a
+  buffer when its last reference goes, with no reuse plan; the caching
+  allocator's rounding and fragmentation are not modelled (``memory_model``);
+* ``flops_per_device`` from the ``attn_naive=True`` run (every flop
+  visible, as JAX's naive probes), ``bytes_per_device``,
+  ``convert_bytes_per_device`` and ``collectives`` from the production path
+  (the twins), both with ``remat=False`` as JAX's probe configs, and
+  ``scanned_cost`` and the memory from the step as configured.  JAX counts
+  1- and 2-period probes and extrapolates (its scanned loop hides the
+  layers from XLA's cost analysis); eager PyTorch hides no loop, so the
+  port counts the **full-depth** step directly (``roofline.extrapolate``
+  of its own 1- and 2-period counts gives the same numbers);
+* ``collectives``: counts, payloads, result and ring wire bytes by kind,
+  and ``total_wire_bytes_per_device``;
+* ``roofline``: :func:`~repro_torch.launch.roofline.roofline_terms` on the
+  fixed H100 SXM spec (bf16), named in ``roofline_spec``;
+* ``model_flops_total``, ``model_flops_per_device``, ``useful_flops_ratio``,
+  ``status`` (``skipped`` with JAX's reason where ``shape_applies`` says
+  so; ``error`` with the traceback when a cell fails);
+* ``modelled: true``, ``compile_s: null`` and ``count_s`` (the seconds of
+  the counted runs).  JAX's ``bytes_per_device_tpu_corrected`` and
+  ``roofline_tpu_corrected`` correct for a TPU's fusion of casts and have
+  no meaning for eager CUDA: left out.
+
+**PLAR's cell** (:func:`run_plar_cell`, ``--plar``).  The cell is JAX's:
+one PLAR greedy iteration at SDSS scale, G 327,680 granules x A 5,216
+candidate attributes (320,000 x 5,201 padded to shard multiples), V 8, M
+17 classes, K 64 classes of the reduct mid-loop (n_bins = K·V = 512), SCE;
+candidates over ``model``, granules over ``(pod, data)`` of
+:func:`~repro_torch.launch.mesh.make_production_mesh`: (16, 16) on one
+pod, (2, 16, 16) on two.  One rank's shard is G/n_data x A/n_model:
 20,480 x 326 on one pod, 10,240 x 326 on two.
 
 JAX lowers and compiles the step for 256 or 512 placeholder devices and
-reads XLA's memory and cost analyses.  The port starts no 256-rank world
-(its :class:`~repro_torch.distributed.api.Mesh` is one rank of a started
-``torch.distributed`` world); it models the record from the shard shapes
-and keeps JAX's keys:
+reads XLA's memory and cost analyses.  For this cell the port starts no
+world, not even a fake one: it models the record analytically from the
+shard shapes of its own steps and keeps JAX's keys:
 
 * ``memory_per_device``: the arguments of the port's ``_eval_step``
   (``repro_torch/core/distributed.py``) at one rank's shard (the rank holds
@@ -58,17 +109,18 @@ kernel's raw partial on the card); JAX's CLI has no flag for it, so it is a
 keyword of :func:`run_plar_cell` only.  ``--fused-pack`` is
 ``backend="sweep_xla"`` on ``_eval_step``.
 
-The LM cells (``--arch``, ``--shape``, ``--all``) are not ported yet
-(ROADMAP §1 item 8 (d)).  The modelled record touches no device; only
-``--execute`` needs ``--device`` (default ``cuda``: no card is an error).
+A modelled record touches no device and needs no card; only ``--execute``
+needs ``--device`` (default ``cuda``: no card is an error).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -78,10 +130,12 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.roofline import collective_stats as _stats
+from repro_torch.launch.roofline import ring_wire_bytes
 
-__all__ = ["PlarCell", "run_plar_cell", "model_eval_collectives",
-           "model_advance_collectives", "model_memory", "model_cost", "ring_wire_bytes",
-           "shard_operands", "main"]
+__all__ = ["PlarCell", "run_cell", "run_plar_cell", "count_step", "fake_world",
+           "model_eval_collectives", "model_advance_collectives", "model_memory", "model_cost",
+           "ring_wire_bytes", "shard_operands", "main"]
 
 COLLECTIVES = ("all_reduce", "reduce_scatter", "fused")
 DELTA = "SCE"                      # the cell's measure, as JAX's
@@ -91,7 +145,12 @@ MEMORY_MODEL = ("the step's arguments, output and named temporaries at the shard
                 "summed with no reuse; not an exact analysis: the elementwise "
                 "intermediates of the segment-id chain and of θ, and the fused kernel's "
                 "workspace, are not listed, so the peak can exceed temp_bytes")
-NOT_PORTED = "the LM dry-run cells are not ported yet (ROADMAP §1 item 8 (d))"
+LM_MEMORY_MODEL = ("one eager step on the meta device as rank 0 of a fake world: the rank's "
+                   "argument shards, its results, and the high-water mark of the storages "
+                   "the step allocates (freed when their last reference goes); the caching "
+                   "allocator's rounding and fragmentation are not modelled")
+SKIP_REASON = "long_500k requires sub-quadratic attention (DESIGN.md §4)"
+PROBE = dict(scan_unroll=True, remat=False)     # JAX's probe configs, at full depth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,38 +190,6 @@ def _build_mesh(kind: str):
     if kind not in ("single", "multi"):
         raise ValueError(f"unknown mesh kind {kind!r} (one of: single, multi)")
     return make_production_mesh(multi_pod=(kind == "multi"))
-
-
-def ring_wire_bytes(kind: str, payload: float, n: int) -> float:
-    """Bytes one rank sends under a ring over ``n`` ranks for a collective
-    handed ``payload`` bytes (for ``all_gather``, its own shard)."""
-    if n <= 1:
-        return 0.0
-    if kind == "all_reduce":
-        return 2.0 * (n - 1) / n * payload
-    if kind == "reduce_scatter":
-        return (n - 1) / n * payload
-    if kind == "all_gather":
-        return float(n - 1) * payload
-    raise ValueError(f"unknown collective kind {kind!r}")
-
-
-def _stats(calls: List[tuple]) -> Dict:
-    """``[(kind, payload bytes, group size)]`` → JAX's ``CollectiveStats``
-    dict, plus the payloads (what ``_MeshColl`` counts)."""
-    counts: Dict[str, int] = {}
-    payload: Dict[str, int] = {}
-    result: Dict[str, int] = {}
-    wire: Dict[str, float] = {}
-    for kind, b, n in calls:
-        counts[kind] = counts.get(kind, 0) + 1
-        payload[kind] = payload.get(kind, 0) + b
-        res = {"all_reduce": b, "reduce_scatter": b // n, "all_gather": b * n}[kind]
-        result[kind] = result.get(kind, 0) + res
-        wire[kind] = wire.get(kind, 0.0) + ring_wire_bytes(kind, b, n)
-    return {"counts": counts, "result_bytes": result, "wire_bytes": wire,
-            "total_wire_bytes": sum(wire.values()), "payload_bytes": payload,
-            "total_payload_bytes": sum(payload.values())}
 
 
 def model_eval_collectives(cell: PlarCell, collective: str) -> Dict:
@@ -361,6 +388,152 @@ def execute_shard(cell: PlarCell, collective: str, *, table_dtype: str = "int32"
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the LM cells
+# ---------------------------------------------------------------------------
+
+
+def _parse_overrides(pairs):
+    out = {}
+    for pair in pairs or []:
+        k, v = pair.split("=", 1)
+        if v in ("True", "False"):
+            v = v == "True"
+        else:
+            try:
+                v = int(v)
+            except ValueError:
+                try:
+                    v = float(v)
+                except ValueError:
+                    pass
+        out[k] = v
+    return out
+
+
+@contextlib.contextmanager
+def fake_world(shape, axis_names):
+    """A fake world of ``prod(shape)`` ranks (this process rank 0, PyTorch's
+    ``"fake"`` backend: collectives do nothing) and its mesh, inside
+    :func:`repro_torch.device.modelling`; the group is destroyed on exit.
+    Refuses to start while a process group is up."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.device import modelling
+    from repro_torch.distributed.api import make_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: the dry-run starts its own fake "
+                           "world (run it in a process of its own)")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(np.prod(shape)))
+    try:
+        with modelling():
+            yield make_mesh(tuple(shape), tuple(axis_names), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def count_step(fn, args) -> Dict:
+    """Run ``fn(*args)`` once under a :class:`~repro_torch.launch.roofline.StepCounter`
+    and return its counts and the step's memory (module doc)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as rk
+    from repro_torch.launch.roofline import StepCounter, storages
+
+    arg = storages(args)
+    fa.reset_modelled_counts()
+    rk.reset_modelled_counts()
+    with StepCounter() as c:
+        out = fn(*args)
+    res = storages(out)
+    held = c.held_bytes(out)
+    mem = {"argument_bytes": sum(arg.values()), "output_bytes": sum(res.values()),
+           "temp_bytes": c.peak_bytes - held,
+           "alias_bytes": sum(n for k, n in res.items() if k in arg)}
+    mem["total_hbm_bytes"] = (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+                              - mem["alias_bytes"])
+    return {"memory": mem, "flops": c.flops, "bytes": c.bytes,
+            "convert_bytes": c.convert_bytes, "collectives": c.collective_stats(),
+            "calls": list(c.collectives),
+            "kernels": c.kernels, "ops": c.ops,
+            "modelled": {**fa.modelled_counts(), **rk.modelled_counts()}}
+
+
+def _count_cell(cfg, shape, mesh, setup_kw) -> Dict:
+    from repro_torch.launch.specs import make_setup
+
+    fn, args, _placements, _donate = make_setup(cfg, shape, mesh, **setup_kw)
+    return count_step(fn, args)
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *, skip_probes: bool = False,
+             setup_kw=None, overrides=None, cfg=None, layout=None, shape=None) -> dict:
+    """One LM cell, counted on a fake world of the production mesh's size
+    (module doc).  ``skip_probes`` counts the step as configured only
+    (memory and ``scanned_cost``), as JAX's skips its probes.  ``cfg``,
+    ``layout`` (a :class:`~repro_torch.launch.mesh.MeshLayout`) and
+    ``shape`` (a ``ShapeConfig``) override the arch's config, the production
+    mesh and the shape (tests)."""
+    from repro_torch.configs import get_config, shape_applies
+    from repro_torch.launch import roofline as rl
+    from repro_torch.models.config import SHAPES
+
+    cfg = cfg or get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = shape or SHAPES[shape_name]
+    record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind}
+    if not shape_applies(cfg, shape):
+        record["status"] = "skipped"
+        record["reason"] = SKIP_REASON
+        return record
+
+    layout = layout or _build_mesh(mesh_kind)
+    n_chips = layout.size
+    record["chips"] = int(n_chips)
+    record["mesh_shape"] = dict(layout.shape)
+    record["modelled"] = True
+    record["compile_s"] = None
+    record["memory_model"] = LM_MEMORY_MODEL
+    setup_kw = setup_kw or {}
+    t0 = time.time()
+    with fake_world(tuple(layout.shape.values()), layout.axis_names) as mesh:
+        full = _count_cell(cfg, shape, mesh, setup_kw)
+        record["memory_per_device"] = full["memory"]
+        record["scanned_cost"] = {"flops_per_device": full["flops"],
+                                  "bytes_per_device": full["bytes"]}
+        if skip_probes:
+            record["count_s"] = round(time.time() - t0, 1)
+            record["status"] = "ok"
+            return record
+        # FLOPs: naive attention (every flop visible); bytes and collectives:
+        # the production path; both without remat, as JAX's probe configs
+        prod = full if shape.kind != "train" else _count_cell(
+            dataclasses.replace(cfg, **PROBE), shape, mesh, setup_kw)
+        naive = _count_cell(dataclasses.replace(cfg, **PROBE, attn_naive=True), shape, mesh,
+                            setup_kw)
+    record["count_s"] = round(time.time() - t0, 1)
+
+    flops, bytes_ = naive["flops"], prod["bytes"]
+    colls = prod["collectives"]
+    wire_total = colls["total_wire_bytes"]
+    record["flops_per_device"] = flops
+    record["bytes_per_device"] = bytes_
+    record["convert_bytes_per_device"] = prod["convert_bytes"]
+    record["collectives"] = dict(colls, total_wire_bytes_per_device=wire_total)
+    record["kernels"] = {"modelled_calls": prod["modelled"], "costs": prod["kernels"]}
+    record["roofline"] = rl.roofline_terms(flops, bytes_, wire_total, spec=rl.H100_SXM)
+    record["roofline_spec"] = rl.H100_SXM.name
+    mf = rl.model_flops(cfg, shape)
+    record["model_flops_total"] = mf
+    record["model_flops_per_device"] = mf / n_chips
+    record["useful_flops_ratio"] = (mf / n_chips) / flops if flops else None
+    record["status"] = "ok"
+    return record
+
+
 def run_plar_cell(mesh_kind: str, *, collective: str = "all_reduce",
                   table_dtype: str = "int32", fused_pack: bool = False,
                   execute: bool = False, device="cuda",
@@ -417,6 +590,43 @@ def run_plar_cell(mesh_kind: str, *, collective: str = "all_reduce",
     return record
 
 
+def _run_all(args, meshes) -> None:
+    """One subprocess a cell, skipping cells whose JSON exists (JAX's ``--all``)."""
+    from repro_torch.configs import cells
+
+    jobs = [(a, s, m) for (a, s) in cells() for m in meshes]
+    jobs += [("plar-sdss", "eval_iteration", m) for m in meshes]
+    for arch, shape, mesh_kind in jobs:
+        path = os.path.join(args.out, f"{arch}__{shape}__{mesh_kind}.json")
+        if os.path.exists(path) and not args.force:
+            print(f"[skip] {path} exists")
+            continue
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", mesh_kind,
+               "--out", args.out]
+        cmd += ["--plar"] if arch == "plar-sdss" else ["--arch", arch, "--shape", shape]
+        print(f"[run ] {arch} × {shape} × {mesh_kind}", flush=True)
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            err = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                   "status": "error", "stderr": r.stderr[-4000:]}
+            with open(path, "w") as f:
+                json.dump(err, f, indent=2)
+            print(f"[FAIL] {arch} × {shape} × {mesh_kind}", flush=True)
+        else:
+            print(r.stdout.strip().splitlines()[-1] if r.stdout.strip() else "", flush=True)
+
+
+def _finish(record: dict, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2, default=float)
+    rf = record.get("roofline", {})
+    print(f"{record['arch']} × {record['shape']} × {record['mesh']}: {record['status']} "
+          f"compile={record.get('compile_s')}s dominant={rf.get('dominant')}")
+    if record["status"] == "error":
+        print(record.get("traceback", record.get("reason", ""))[-2000:], file=sys.stderr)
+        sys.exit(1)
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch")
@@ -425,20 +635,37 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--plar", action="store_true")
     ap.add_argument("--out", default="runs/dryrun")
+    ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default=None, help="suffix for perf-variant records")
+    ap.add_argument("--override", action="append", default=[],
+                    help="ArchConfig overrides, e.g. --override flash_bwd=True")
+    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--collective", default="all_reduce",
                     choices=["all_reduce", "reduce_scatter"])
     ap.add_argument("--table-dtype", default="int32", choices=["int32", "int8"])
     ap.add_argument("--fused-pack", action="store_true")
     ap.add_argument("--execute", action="store_true",
-                    help="also run one rank's steps at the shard shape on --device")
+                    help="also run one rank's PLAR steps at the shard shape on --device")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.all or args.arch or args.shape or not args.plar:
-        sys.exit(f"dryrun: {NOT_PORTED}; run --plar")
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     os.makedirs(args.out, exist_ok=True)
+    if args.all:
+        _run_all(args, meshes)
+        return {}
     suffix = f"__{args.tag}" if args.tag else ""
+    if not args.plar:
+        try:
+            setup_kw = ({"microbatches": args.microbatches}
+                        if args.microbatches > 1 and args.shape == "train_4k" else {})
+            record = run_cell(args.arch, args.shape, meshes[0],
+                              overrides=_parse_overrides(args.override), setup_kw=setup_kw)
+        except Exception:
+            record = {"arch": args.arch, "shape": args.shape, "mesh": meshes[0],
+                      "status": "error", "traceback": traceback.format_exc()[-4000:]}
+        _finish(record, os.path.join(
+            args.out, f"{args.arch}__{args.shape}__{meshes[0]}{suffix}.json"))
+        return record
     record = {}
     for mesh_kind in meshes:
         try:
@@ -448,15 +675,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         except Exception:
             record = {"arch": "plar-sdss", "shape": "eval_iteration", "mesh": mesh_kind,
                       "status": "error", "traceback": traceback.format_exc()[-4000:]}
-        path = os.path.join(args.out, f"plar-sdss__eval_iteration__{mesh_kind}{suffix}.json")
-        with open(path, "w") as f:
-            json.dump(record, f, indent=2, default=float)
-        rf = record.get("roofline", {})
-        print(f"{record['arch']} × {record['shape']} × {record['mesh']}: {record['status']} "
-              f"compile={record.get('compile_s')}s dominant={rf.get('dominant')}")
-        if record["status"] == "error":
-            print(record.get("traceback", record.get("reason", ""))[-2000:], file=sys.stderr)
-            sys.exit(1)
+        _finish(record, os.path.join(
+            args.out, f"plar-sdss__eval_iteration__{mesh_kind}{suffix}.json"))
     return record
 
 

@@ -3,12 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.report --dir runs/dryrun
 
 The port's own copy of ``repro.launch.report`` (standard library only): the
-same ``load``, ``dryrun_table``, ``roofline_table`` and ``dominant_hint``
-over the records of :mod:`repro_torch.launch.dryrun`, which are PLAR's
-alone (the LM cells, and their rows and hints, come with ROADMAP §1 item
-8 (d)).  The hints name the GPU's hardware (NVLink, HBM, the CUDA cores),
-where JAX's name the TPU's; a modelled record's compile time (``null``)
-prints as ``—``.
+same ``load``, ``dryrun_table``, ``roofline_table`` (with its useful-FLOPs
+column) and ``dominant_hint`` over the records of
+:mod:`repro_torch.launch.dryrun`: the LM cells and PLAR's.  The hints name
+the GPU's hardware (NVLink, HBM, the tensor and CUDA cores), where JAX's
+name the TPU's; a modelled record's compile time (``null``) prints as
+``—``.
 """
 from __future__ import annotations
 
@@ -45,48 +45,75 @@ def dryrun_table(records: List[Dict]) -> str:
         "|---|---|---|---|---|---|---|---|",
     ]
     for r in records:
+        if r.get("status") == "skipped":
+            lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                         f"skipped¹ | — | — | — | — |")
+            continue
         if r.get("status") != "ok":
             lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
                          f"**ERROR** | — | — | — | — |")
             continue
-        m = r["memory_per_device"]
-        hbm = m["argument_bytes"] + m["output_bytes"] + m["temp_bytes"]
-        wire = r["collectives"]["total_wire_bytes"]
+        m = r.get("memory_per_device", {})
+        hbm = (m.get("argument_bytes", 0) + m.get("output_bytes", 0)
+               + m.get("temp_bytes", 0) - m.get("alias_bytes", 0))
+        wire = (r.get("collectives", {}) or {}).get("total_wire_bytes_per_device")
+        if wire is None:
+            wire = (r.get("collectives", {}) or {}).get("total_wire_bytes")
+        flops = r.get("flops_per_device")
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
             f"{fmt_s(r.get('compile_s'))} | {hbm/GB:.1f} GiB | "
-            f"{r['flops_per_device']/1e12:.2f}T | {wire/1e9:.2f} GB |"
+            f"{(flops or 0)/1e12:.2f}T | {(wire or 0)/1e9:.2f} GB |"
         )
+    lines.append("")
+    lines.append("¹ long_500k on full-attention archs — skipped per DESIGN.md §4.")
     return "\n".join(lines)
 
 
 def roofline_table(records: List[Dict], mesh: str = "single") -> str:
     lines = [
-        "| arch | shape | compute | memory | collective | dominant | model TF | what moves the dominant term |",
-        "|---|---|---|---|---|---|---|---|",
+        "| arch | shape | compute | memory | collective | dominant | model TF | useful % | what moves the dominant term |",
+        "|---|---|---|---|---|---|---|---|---|",
     ]
     for r in records:
         if r.get("mesh") != mesh or r.get("status") != "ok":
             continue
-        rf = r["roofline"]
-        mf = r["model_flops_total"] / 1e12
+        rf = r.get("roofline")
+        if not rf:
+            continue
+        ratio = r.get("useful_flops_ratio")
+        mf = r.get("model_flops_total", 0) / 1e12
         lines.append(
             f"| {r['arch']} | {r['shape']} | {fmt_s(rf['compute_s'])} | "
             f"{fmt_s(rf['memory_s'])} | {fmt_s(rf['collective_s'])} | "
-            f"**{rf['dominant']}** | {mf:.0f} | {dominant_hint(r)} |"
+            f"**{rf['dominant']}** | {mf:.0f} | "
+            f"{'' if ratio is None else f'{ratio*100:.0f}%'} | {dominant_hint(r)} |"
         )
     return "\n".join(lines)
 
 
 def dominant_hint(r: Dict) -> str:
-    dom = r["roofline"]["dominant"]
+    dom = r.get("roofline", {}).get("dominant")
+    shape = r.get("shape", "")
+    if r.get("arch") == "plar-sdss":
+        if dom == "collective":
+            return ("the contingency all-reduce over NVLink: reduce_scatter (θ is "
+                    "row-separable) or the fused schedule's O(nc) payload")
+        if dom == "memory":
+            return ("HBM traffic of the column gather and the contingency round trip: "
+                    "int8 tables, the fused-pack (sweep) formulation")
+        return "f32 CUDA-core work of the θ epilogue: fewer bins (the §5.3 ladder)"
     if dom == "collective":
-        return ("the contingency all-reduce over NVLink: reduce_scatter (θ is "
-                "row-separable) or the fused schedule's O(nc) payload")
+        return ("smaller FSDP all-gathers over NVLink (DP-only for small models) / "
+                "overlap collectives with compute")
     if dom == "memory":
-        return ("HBM traffic of the column gather and the contingency round trip: "
-                "int8 tables, the fused-pack (sweep) formulation")
-    return "f32 CUDA-core work of the θ epilogue: fewer bins (the §5.3 ladder)"
+        if "decode" in shape or "long" in shape:
+            return "KV-cache quantization / a larger decode batch amortizes the HBM weight reads"
+        if "train" in shape:
+            return ("a flash backward kernel (the plain backward writes the S² scores to "
+                    "HBM) / fused remat")
+        return "fused norms, RoPE and casts (eager PyTorch writes every op's output to HBM)"
+    return "causal block skipping in prefill / wgmma-aligned tiles on the tensor cores"
 
 
 def main():

@@ -30,7 +30,7 @@ from .blocks import layer_pattern
 from .config import ArchConfig
 from .layers import flatten_tree
 
-__all__ = ["params_from_jax", "params_to_jax", "specs_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "shapes_to_jax", "specs_to_jax"]
 
 _BF16_BYTES = np.dtype("V2")   # how an npz holds a bf16 array
 
@@ -121,3 +121,9 @@ def _stack_specs(specs):
 def specs_to_jax(cfg: ArchConfig, specs: Mapping[str, Any]) -> Dict[str, Any]:
     """The port's ``param_specs()`` as JAX's ``param_specs()`` tree."""
     return _to_jax(cfg, specs, lambda sp: sp, _stack_specs)
+
+
+def shapes_to_jax(cfg: ArchConfig, shapes: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``param_shapes()`` (meta tensors) as JAX's ``param_shapes()``
+    tree: meta tensors of the stacked leaves' shapes and dtypes."""
+    return _to_jax(cfg, shapes, lambda t: t, torch.stack)

@@ -35,8 +35,8 @@ from .blocks import remat_fn
 from .config import ArchConfig, torch_dtype
 from .frontends import frontend_defs, project_frontend
 from .layers import (ParamDef, ParamTree, ShardedDefs, add_params, cross_entropy_loss,
-                     embed_defs, embed_lookup, norm_def, rms_norm, shardings_from_defs,
-                     specs_from_defs)
+                     embed_defs, embed_lookup, norm_def, rms_norm, shapes_from_defs,
+                     shardings_from_defs, specs_from_defs)
 from .mlp import mlp, mlp_defs
 
 Cache = Dict[str, torch.Tensor]
@@ -163,6 +163,10 @@ class EncDecLM(ShardedDefs, nn.Module):
 
     def cache_shardings(self, batch_size: int, cache_len: int, enc_len: int, mesh):
         return shardings_from_defs(self.cache_defs(batch_size, cache_len, enc_len), True, mesh)
+
+    def cache_shapes(self, batch_size: int, cache_len: int, enc_len: int) -> Dict[str, Any]:
+        """The cache as meta tensors (:func:`shapes_from_defs`), JAX's layout."""
+        return shapes_from_defs(self.cache_defs(batch_size, cache_len, enc_len))
 
     def init_cache(self, batch_size: int, cache_len: int, enc_len: int) -> Cache:
         """The zero cache (placed by its specs under a mesh)."""

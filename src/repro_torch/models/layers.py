@@ -44,7 +44,8 @@ from .config import torch_dtype
 
 __all__ = ["ParamDef", "ParamTree", "add_params", "apply_rope", "cross_entropy_loss",
            "embed_defs", "init_param", "norm_def", "rms_norm", "rope_frequencies",
-           "ShardedDefs", "embed_lookup", "flatten_tree", "shard_params", "shardings_from_defs",
+           "ShardedDefs", "embed_lookup", "flatten_tree", "shapes_from_defs", "shard_params",
+           "shardings_from_defs",
            "specs_from_defs"]
 
 
@@ -78,6 +79,13 @@ def specs_from_defs(defs: Dict[str, Any], fsdp: bool) -> Dict[str, Any]:
             entries.append(e)
         return P(*entries)
     return _map_defs(spec, defs)
+
+
+def shapes_from_defs(defs: Dict[str, Any]) -> Dict[str, Any]:
+    """``defs`` with each leaf a ``meta`` tensor of its shape and dtype: the
+    counterpart of JAX's ``ShapeDtypeStruct`` tree, allocating nothing."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype), device="meta"),
+                     defs)
 
 
 def shardings_from_defs(defs: Dict[str, Any], fsdp: bool, mesh) -> Dict[str, Any]:
@@ -125,8 +133,11 @@ def _leaf_seed(seed: int, path: str) -> int:
 
 
 def init_param(d: ParamDef, path: str, seed: int, device: torch.device) -> torch.Tensor:
-    """One leaf: zeros, ones, or N(0, 1) · (fan_in⁻¹ᐟ² or 0.02) in its dtype."""
+    """One leaf: zeros, ones, or N(0, 1) · (fan_in⁻¹ᐟ² or 0.02) in its dtype;
+    on the ``meta`` device (the dry-run's modelled card) uninitialised."""
     dtype = torch_dtype(d.dtype)
+    if device.type == "meta":
+        return torch.empty(d.shape, dtype=dtype, device=device)
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
@@ -161,6 +172,10 @@ class ShardedDefs:
 
     def param_shardings(self, mesh) -> Dict[str, Any]:
         return flatten_tree(shardings_from_defs(self.param_defs(), self.cfg.fsdp, mesh))
+
+    def param_shapes(self) -> Dict[str, torch.Tensor]:
+        """``{state_dict key: meta tensor}`` (:func:`shapes_from_defs`)."""
+        return flatten_tree(shapes_from_defs(self.param_defs()))
 
     def shard(self, mesh):
         """Place every parameter by :meth:`param_shardings` (DTensors on

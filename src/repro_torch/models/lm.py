@@ -46,7 +46,8 @@ from .blocks import Block, block_defs, layer_pattern, run_stack_decode, run_stac
 from .config import ArchConfig, torch_dtype
 from .frontends import frontend_defs, project_frontend
 from .layers import (ParamDef, ShardedDefs, add_params, cross_entropy_loss, embed_defs,
-                     embed_lookup, norm_def, rms_norm, shardings_from_defs, specs_from_defs)
+                     embed_lookup, norm_def, rms_norm, shapes_from_defs, shardings_from_defs,
+                     specs_from_defs)
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 Batch = Union[Mapping[str, torch.Tensor], torch.Tensor]
@@ -170,6 +171,10 @@ class CausalLM(ShardedDefs, nn.Module):
 
     def cache_shardings(self, batch_size: int, cache_len: int, mesh) -> Dict[str, Any]:
         return shardings_from_defs(self.cache_defs(batch_size, cache_len), True, mesh)
+
+    def cache_shapes(self, batch_size: int, cache_len: int) -> Dict[str, Any]:
+        """The cache as meta tensors (:func:`shapes_from_defs`), JAX's layout."""
+        return shapes_from_defs(self.cache_defs(batch_size, cache_len))
 
     def init_cache(self, batch_size: int, cache_len: int) -> Cache:
         """The zero cache (placed by its specs under a mesh)."""

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.api import (BATCH_AXES, FSDP_AXIS, TP_AXIS, P, active_mesh,
-                                        constrain, fit_entry, shard_map)
+                                        constrain, fit_entry, grad_in_placements, shard_map)
 from repro_torch.kernels.rwkv6 import rwkv6, rwkv6_diff
 
 from .config import torch_dtype
@@ -135,7 +135,10 @@ def rwkv_time_mix(params, x, cfg, *, shift_state: Optional[torch.Tensor] = None,
     of = o.float().reshape(b, t, h, hd)
     var = (of * of).mean(dim=-1, keepdim=True)
     of = of * torch.rsqrt(var + LN_X_EPS)
-    o = (of.reshape(b, t, d) * params["ln_x"][None, None].float()).to(cdt)
+    # the head split above takes its gradient in o's placements: heads that
+    # do not divide the model axis are replicated, the gradient of the gated
+    # product is not
+    o = (grad_in_placements(of.reshape(b, t, d)) * params["ln_x"][None, None].float()).to(cdt)
     out = constrain((o * g) @ params["wo"].to(cdt), BATCH_AXES, None, None)
     if return_state:
         return out, (last, s_fin)

@@ -12,8 +12,8 @@
   (Θ_PR bit for bit, SCE within rtol=1e-6, atol=1e-7; ``reduce_scatter``
   sums each shard's scaled θ rows, as JAX's ``merge_candidate_cont`` does,
   so its Θ_PR is not one division and is held within that tolerance).
-* ``execute=True`` on a world of one gloo rank, and ``report.py``'s tables
-  of the records.
+* ``execute=True`` on a world of one gloo rank, ``report.py``'s tables
+  of the records, and the CLI's failure without a cell flag (JAX's).
 """
 import json
 import os
@@ -180,7 +180,14 @@ def test_report_renders_the_records(tmp_path):
         assert len(row) == 1 and "**collective**" in row[0] and "NVLink" in row[0]
 
 
-def test_lm_cells_are_refused():
-    for argv in (["--arch", "tinyllama-1.1b", "--shape", "train_4k"], ["--all"], []):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            dryrun.main(argv)
+def test_no_flag_run_fails_as_jax_does(tmp_path):
+    """With no --arch, --plar or --all the CLI runs the LM cell of arch
+    None, as JAX's does: an error record with its traceback, exit 1."""
+    import torch.distributed as dist
+
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--out", str(tmp_path)])
+    assert e.value.code == 1
+    rec = json.loads((tmp_path / "None__None__single.json").read_text())
+    assert rec["status"] == "error" and "unknown arch None" in rec["traceback"]
+    assert not dist.is_initialized()

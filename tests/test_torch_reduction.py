@@ -278,7 +278,9 @@ def test_port_exports_every_reference_name():
 def test_port_imports_no_jax_or_repro(tmp_path):
     """Importing and running the port (reductions, the tile selector, its
     cost model and the roofline, one tiny paper table, the modelled dry-run
-    cell and its report, the reduct service with
+    cells (PLAR's, and a reduced LM training cell on a fake world) and their
+    report, the bench modules (the serve bench's dedup and admission
+    section), the serving example, the reduct service with
     one query served through a CPU ``ReductServer``, LM serving of every
     family (the dense, RWKV6, MoE and Mamba-hybrid engines, a VLM prefill
     with frontend features, an enc-dec prefill and decode), one reduced
@@ -356,11 +358,26 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "batch = {'tokens': torch.arange(12)[None], 'frontend_feats': feats}\n"
         "lg, cache, lens = lm.prefill(batch, 16)\n"
         "lg, cache, lens = lm.decode(cache, lg.argmax(-1), lens)\n"
+        "cfg_t = get_config('tinyllama-1.1b').reduced()\n"
         "cfg = get_config('seamless-m4t-medium').reduced()\n"
         "ed = build_model(cfg, device='cpu')\n"
         "cache, lens = ed.prefill({'frames': torch.zeros((1, 9, cfg.frontend_dim))}, 4)\n"
         "lg, cache, lens = ed.decode(cache, torch.zeros((1, 1), dtype=torch.long), lens)\n"
         "assert lg.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(lg).all())\n"
+        "from repro_torch.launch import specs, bench_common, bench_serve, bench_chaos\n"
+        "from repro_torch.launch import bench_obs, bench_ingest\n"
+        "from repro_torch.launch.mesh import MeshLayout\n"
+        "from repro_torch.models.config import ShapeConfig\n"
+        "rec = dryrun.run_cell('tinyllama-1.1b', 'train_4k', 'single', cfg=cfg_t,\n"
+        "    layout=MeshLayout(('data', 'model'), {'data': 2, 'model': 1}),\n"
+        "    shape=ShapeConfig('train_4k', 16, 2, 'train'))\n"
+        "assert rec['status'] == 'ok' and 'tinyllama' in report.dryrun_table([rec])\n"
+        "assert len(bench_serve.serve_dedup_and_admission(device='cpu', n_rows=400)) == 2\n"
+        "import runpy\n"
+        "ex = runpy.run_path('examples/pt_serve_lm.py', run_name='pt_serve_lm')\n"
+        "done = ex['main'](['--arch', 'tinyllama-1.1b', '--requests', '2', '--device', 'cpu',\n"
+        "                   '--ckpt-dir', 'no-such-dir'])\n"
+        "assert all(r.output for r in done)\n"
         "import repro_torch.train, repro_torch.launch.train\n"
         "state, hist = repro_torch.launch.train.main(['--arch', 'rwkv6-3b', '--smoke',\n"
         "    '--steps', '1', '--global-batch', '2', '--seq-len', '8', '--device', 'cpu'])\n"
@@ -383,8 +400,9 @@ def test_port_imports_no_jax_or_repro(tmp_path):
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), src])
     env["OMP_NUM_THREADS"] = "1"
     env["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp_path / "autotune.json")
+    root = os.path.dirname(src)
     p = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                       text=True, timeout=120)
+                       text=True, timeout=120, cwd=root)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "BAD []" in p.stdout
 

@@ -4,8 +4,9 @@ the JAX package's on the same configs.
 
 Left out: ``test_parse_collectives_counts_and_bytes``.  The port has no HLO
 to parse: JAX's ``parse_collectives`` and ``parse_convert_bytes`` feed its
-``dryrun.py`` from compiled HLO text, and the port will count collectives
-from ``torch.distributed`` when it ports that launcher (ROADMAP §1 item 8).
+``dryrun.py`` from compiled HLO text, where the port counts collectives
+and casts as its step runs (``StepCounter``, tested in
+``tests/test_torch_specs.py`` and ``tests/test_torch_dryrun_lm.py``).
 """
 import dataclasses
 
