@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, host_int, resolve_device
 
 __all__ = [
     "Granularity",
@@ -351,10 +351,11 @@ def with_capacity(gran: Granularity, capacity: int) -> Granularity:
     if capacity == cap:
         return gran
     if capacity < cap:
-        if int(gran.num) > capacity:
+        num = host_int(gran.num)
+        if num > capacity:
             raise ValueError(
-                f"capacity {capacity} < live granule count {int(gran.num)}")
-        if int(gran.valid[:capacity].sum()) != int(gran.num):
+                f"capacity {capacity} < live granule count {num}")
+        if host_int(gran.valid[:capacity].sum()) != num:
             raise ValueError(
                 "granularity is not front-packed: live slots extend past the "
                 f"requested capacity {capacity}")
@@ -397,7 +398,7 @@ def merge_granularity(a: Granularity, b: Granularity, *, exact: bool = True,
             x, d, n_dec=a.n_dec, v_max=a.v_max, w=w, valid=valid,
             exact=exact, seed=seed, capacity=cap,
         )
-        num = int(g.num)
+        num = host_int(g.num)
         if num <= cap:
             return g
         cap = next_pow2(num)
@@ -448,14 +449,14 @@ def fold_chunk(acc: Optional[Granularity], xc, dc, *, n_dec: int, v_max: int,
             xc, dc, n_dec=n_dec, v_max=v_max, exact=exact, seed=seed,
             capacity=next_pow2(xc.shape[0]),
         )
-        g = with_capacity(g, next_pow2(max(int(g.num), 1)))
-        if acc is None:
-            sp.set(granules=int(g.num))
-            return g
-        acc = merge_granularity(acc, g, exact=exact, seed=seed)
-        acc = with_capacity(acc, next_pow2(max(int(acc.num), 1)))
-        sp.set(granules=int(acc.num))
-    return acc
+        num = host_int(g.num)
+        g = with_capacity(g, next_pow2(max(num, 1)))
+        if acc is not None:
+            g = merge_granularity(acc, g, exact=exact, seed=seed)
+            num = host_int(g.num)
+            g = with_capacity(g, next_pow2(max(num, 1)))
+        sp.set(granules=num)      # the count read above: no read of its own
+    return g
 
 
 def regranulate(gran: Granularity, cols, *, exact: bool = True, seed: int = 0) -> Granularity:

@@ -21,9 +21,17 @@ takes the device engine for :data:`DEVICE_BACKENDS` and the host loop
 otherwise; both record byte-identical Θ histories.
 :func:`plar_reduce_ensemble` runs a grid of configs over one granularity in
 one stacked engine loop.
+
+Spans (``repro_torch.obs``, recorded when tracing is on): ``reduce.granulate``
+(:func:`resolve_granularity`), ``reduce.plar`` (one :func:`plar_reduce`)
+and, on its host loop, ``reduce.theta_full``, ``reduce.core``,
+``reduce.greedy`` and one ``reduce.iteration`` a greedy iteration.  Each
+ends at a host read of the device work it covers (``repro_torch.device``'s
+counted reads), so its end is the device's; none adds a synchronize.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Sequence
@@ -31,7 +39,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch import obs
+from repro_torch.device import (DeviceLike, host_float, host_int, host_reads,
+                                resolve_device, to_host)
 
 from . import measures
 from .engine import (
@@ -119,6 +129,22 @@ class ReductionResult:
         return len(self.reduct)
 
 
+@contextlib.contextmanager
+def _counted_span(name: str, **attrs):
+    """``obs.span`` with a ``host_reads`` attribute: the device→host reads
+    this thread made while the span was open, its children's included."""
+    with obs.span(name, **attrs) as sp:
+        r0 = host_reads()
+        yield sp
+        sp.set(host_reads=host_reads() - r0)
+
+
+def _launches() -> int:
+    """CUDA Θ kernel launches so far in this process (all three kernels)."""
+    from repro_torch.kernels.contingency.ops import LAUNCHES
+    return sum(LAUNCHES.values())
+
+
 def raw_granularity(x, d, *, n_dec: int, v_max: int,
                     device: DeviceLike = "cuda") -> Granularity:
     """A decision table *without* GrC initialization: every row is a granule."""
@@ -154,7 +180,7 @@ def _core_inner_thetas(gran: Granularity, delta: str, *, exact: bool) -> np.ndar
             ids, _ = subset_ids(gran, [j for j in range(A) if j != a], exact=True)
             cont = contingency_from_ids(ids, gran.d, gran.w, gran.valid,
                                         n_bins=n_bins, m=gran.n_dec)
-            out[a] = float(measures.evaluate(delta, cont, gran.n_total))
+            out[a] = host_float(measures.evaluate(delta, cont, gran.n_total))
         return out
 
     # Linear-sketch path: h(C\{a}) = h(C) - term_a  (mod 2³²).
@@ -165,7 +191,7 @@ def _core_inner_thetas(gran: Granularity, delta: str, *, exact: bool) -> np.ndar
         ids, _k = ids_by_sort([(h2 - t2) & _MASK32, (h1 - t1) & _MASK32], gran.valid)
         cont = contingency_from_ids(ids, gran.d, gran.w, gran.valid,
                                     n_bins=n_bins, m=gran.n_dec)
-        out[a] = float(measures.evaluate(delta, cont, gran.n_total))
+        out[a] = host_float(measures.evaluate(delta, cont, gran.n_total))
     return out
 
 
@@ -174,9 +200,12 @@ def _core_inner_thetas(gran: Granularity, delta: str, *, exact: bool) -> np.ndar
 # ---------------------------------------------------------------------------
 
 
-def _shrink_capacity(gran: Granularity) -> Granularity:
-    """Shrink the static capacity to the live granule count (next pow2)."""
-    cap2 = next_pow2(max(int(gran.num), 16))
+def _shrink_capacity(gran: Granularity, sp) -> Granularity:
+    """Shrink the static capacity to the live granule count (next pow2);
+    the count read sets the span ``sp``'s ``granules``."""
+    num = host_int(gran.num)
+    sp.set(granules=num)
+    cap2 = next_pow2(max(num, 16))
     return with_capacity(gran, cap2) if cap2 != gran.capacity else gran
 
 
@@ -224,33 +253,38 @@ def resolve_granularity(
       representation);
     * raw ``(x, d)`` arrays (numpy or tensors) — ``n_dec``/``v_max`` are
       inferred from the data when not given.
+
+    Span ``reduce.granulate`` (``rows`` handed in, ``granules``,
+    ``host_reads``): with GrC it ends at the read of the live count.
     """
     dev = resolve_device(device)
     _check_source_args(x, d, source)
+    rows = source.capacity if isinstance(source, Granularity) else (
+        len(x) if source is None else None)
+    with _counted_span("reduce.granulate", rows=rows) as sp:
+        if isinstance(source, Granularity):
+            g = source.to(dev)
+            return _shrink_capacity(g, sp) if grc_init else g
 
-    if isinstance(source, Granularity):
-        g = source.to(dev)
-        return _shrink_capacity(g) if grc_init else g
+        if source is not None:
+            n_dec = source.n_dec if n_dec is None else n_dec
+            v_max = source.v_max if v_max is None else v_max
+            if grc_init:
+                return _shrink_capacity(build_granularity_streaming(
+                    _iter_chunks(source, chunk_rows), n_dec=n_dec, v_max=v_max,
+                    exact=exact, device=dev), sp)
+            x, d = _materialize(source, chunk_rows)
 
-    if source is not None:
-        n_dec = source.n_dec if n_dec is None else n_dec
-        v_max = source.v_max if v_max is None else v_max
-        if grc_init:
-            return _shrink_capacity(build_granularity_streaming(
-                _iter_chunks(source, chunk_rows), n_dec=n_dec, v_max=v_max,
-                exact=exact, device=dev))
-        x, d = _materialize(source, chunk_rows)
-
-    x = torch.as_tensor(x, dtype=torch.int32).to(dev)
-    d = torch.as_tensor(d, dtype=torch.int32).to(dev)
-    if n_dec is None:
-        n_dec = int(d.max()) + 1
-    if v_max is None:
-        v_max = int(x.max()) + 1
-    if not grc_init:
-        return raw_granularity(x, d, n_dec=n_dec, v_max=v_max, device=dev)
-    return _shrink_capacity(
-        build_granularity(x, d, n_dec=n_dec, v_max=v_max, exact=exact))
+        x = torch.as_tensor(x, dtype=torch.int32).to(dev)
+        d = torch.as_tensor(d, dtype=torch.int32).to(dev)
+        if n_dec is None:
+            n_dec = host_int(d.max()) + 1
+        if v_max is None:
+            v_max = host_int(x.max()) + 1
+        if not grc_init:
+            return raw_granularity(x, d, n_dec=n_dec, v_max=v_max, device=dev)
+        return _shrink_capacity(
+            build_granularity(x, d, n_dec=n_dec, v_max=v_max, exact=exact), sp)
 
 
 def _check_codes(gran: Granularity) -> None:
@@ -265,7 +299,7 @@ def _check_codes(gran: Granularity) -> None:
     if gran.capacity == 0 or gran.n_attrs == 0:
         return
     x = torch.where(gran.valid[:, None], gran.x, 0)
-    lo, hi = (int(v) for v in torch.aminmax(x))
+    lo, hi = (host_int(v) for v in torch.aminmax(x))
     if lo < 0 or hi >= gran.v_max:
         raise ValueError(
             f"attribute codes must lie in [0, v_max={gran.v_max}); the table "
@@ -349,160 +383,54 @@ def plar_reduce(
             f"unknown selector: {selector!r} "
             f"(one of: {', '.join(SELECTOR_MODES)})")
     engine = _resolve_engine(engine, backend)
-    gran = resolve_granularity(
-        x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
-        exact=exact, chunk_rows=chunk_rows, device=device)
-    _check_codes(gran)
-    dev = gran.device
+    launches0 = _launches()
+    with _counted_span("reduce.plar", delta=delta, backend=backend, engine=engine) as sp:
+        gran = resolve_granularity(
+            x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
+            exact=exact, chunk_rows=chunk_rows, device=device)
+        A = gran.n_attrs
+        n_evals = 0
 
-    A = gran.n_attrs
-    m = gran.n_dec
-    cap = gran.capacity
-    n = gran.n_total
-    v = gran.v_max
-    n_evals = 0
+        warm: Optional[List[int]] = None
+        if warm_start is not None:
+            warm = _validate_warm_start(warm_start, A)
 
-    warm: Optional[List[int]] = None
-    if warm_start is not None:
-        warm = _validate_warm_start(warm_start, A)
+        # Θ(D|C): stopping target.
+        with obs.span("reduce.theta_full"):
+            _check_codes(gran)
+            ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
+            cont_c = contingency_from_ids(ids_c, gran.d, gran.w, gran.valid,
+                                          n_bins=gran.capacity, m=gran.n_dec)
+            theta_full = host_float(measures.evaluate(delta, cont_c, gran.n_total))
 
-    # Θ(D|C): stopping target.
-    ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
-    cont_c = contingency_from_ids(ids_c, gran.d, gran.w, gran.valid, n_bins=cap, m=m)
-    theta_full = float(measures.evaluate(delta, cont_c, n))
+        # --- core (skipped under warm_start: the prefix stands in for it) ---
+        core: List[int] = []
+        if compute_core and warm is None:
+            with obs.span("reduce.core", n_attrs=A) as sp_core:
+                inner = _core_inner_thetas(gran, delta, exact=exact)
+                sig = inner - theta_full  # Θ(D|C\{a}) - Θ(D|C)
+                core = [int(a) for a in range(A) if sig[a] > eps + tie_tol]
+                sp_core.set(core=len(core))
+            n_evals += A
+        max_sel = int(max_features) if max_features is not None else A
+        cfg = _Cfg(delta, mode, backend, A, gran.capacity, gran.n_dec, gran.v_max, float(tol),
+                   float(tie_tol), bool(shrink), max_sel, int(mp_chunk), bool(ladder),
+                   str(selector))
 
-    # --- core (skipped under warm_start: the prefix stands in for it) ---
-    core: List[int] = []
-    if compute_core and warm is None:
-        inner = _core_inner_thetas(gran, delta, exact=exact)
-        sig = inner - theta_full  # Θ(D|C\{a}) - Θ(D|C)
-        core = [int(a) for a in range(A) if sig[a] > eps + tie_tol]
-        n_evals += A
-    forced = core if warm is None else warm
-    max_sel = int(max_features) if max_features is not None else A
-    cfg = _Cfg(delta, mode, backend, A, cap, m, v, float(tol), float(tie_tol), bool(shrink),
-               max_sel, int(mp_chunk), bool(ladder), str(selector))
-
-    if engine == "device":
-        # core folds + greedy loop + stopping rule as one device-resident
-        # loop (core/engine.py), one device→host transfer at the end
-        reduct, theta_hist, iterations, ev, per_iter = run_engine(
-            make_engine_run(*dataclasses.astuple(cfg), device=dev), cap, A, gran.valid, gran.x,
-            gran.d, gran.w, n, theta_full, core, warm_start=warm)
-        return ReductionResult(
-            reduct=reduct,
-            core=core,
-            theta_full=theta_full,
-            theta_history=theta_hist,
-            iterations=iterations,
-            n_evaluations=n_evals + ev,
-            elapsed_s=time.perf_counter() - t0,
-            per_iteration_s=per_iter,
-        )
-
-    # --- greedy loop state (the host loop: one sync per iteration) ---
-    r_ids = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    k = 1
-    active = gran.valid
-    # float32 accumulation of the shrink correction, as the JAX package keeps it
-    pr_correction = np.float32(0.0)
-    reduct: List[int] = []
-    theta_hist: List[float] = []
-    per_iter_s: List[float] = []
-
-    # The advance is the device engine's, at the full bin bound cap·V
-    # whatever the backend: Θ(D|R) is summed over the same rows on every
-    # path, which keeps theta histories byte-identical across engines,
-    # backends and the ladder.
-    def adv(r, a_col, act):
-        return _advance(cfg, _LOCAL, r, a_col, gran.d, gran.w, act, n)
-
-    def _eval_bins_for(k_):
-        if ladder:
-            return rung_for(k_, v, cfg.rungs)
-        # the XLA-twin backends keep the full bound (the JAX device engine's
-        # grouping); the kernel backends take the cheaper pow2 bound
-        return cap * v if backend in DEVICE_BACKENDS else next_pow2(max(k_, 1)) * v
-
-    # read-once candidate slab for the sweep backends, hoisted out of the loop
-    x_t_full = gran.x.t().contiguous() if backend in SWEEP_BACKENDS else None
-
-    # the stop threshold in f32 arithmetic, as the JAX drivers compute it
-    stop_thresh = measures.f32_threshold(theta_full, tol)
-    n_np = np.float32(int(n))
-
-    def _shrink_step(g_pure):
-        nonlocal pr_correction, active
-        if delta == "PR":
-            shed = np.float32(int(torch.where(g_pure, gran.w, torch.zeros_like(gran.w)).sum()))
-            pr_correction = pr_correction - np.float32(shed / n_np)
-        active = active & ~g_pure
-
-    # fold the forced prefix (core attributes, or the warm-start prefix)
-    for a in forced:
-        r_ids, k_new, theta_r, g_pure = adv(r_ids, gran.x[:, a], active)
-        k = int(k_new)
-        reduct.append(a)
-        theta_hist.append(float(np.float32(float(theta_r)) + pr_correction))
-        if shrink:
-            _shrink_step(g_pure)
-
-    theta_r = theta_hist[-1] if theta_hist else float("inf")
-
-    remaining = [a for a in range(A) if a not in reduct]
-    iterations = 0
-    while remaining and theta_r > stop_thresh:
-        if max_features is not None and len(reduct) >= max_features:
-            break
-        it0 = time.perf_counter()
-        nc = min(mp_chunk, max(len(remaining), 1))
-        corr = torch.tensor(float(pr_correction), dtype=torch.float32, device=dev)
-
-        thetas = np.full((len(remaining),), np.inf, np.float64)
-        if mode == "spark":
-            # re-key from scratch: fingerprint of the current R columns
-            if reduct:
-                hR1 = sum_terms(gran.x, reduct, 0)
-                hR2 = sum_terms(gran.x, reduct, 7919)
-            else:
-                hR1 = torch.zeros((cap,), dtype=torch.int64, device=dev)
-                hR2 = torch.zeros((cap,), dtype=torch.int64, device=dev)
-            for s in range(0, len(remaining), nc):
-                cols = remaining[s: s + nc]
-                vals = _spark_thetas(delta, hR1, hR2, cols, gran.x, gran.d, gran.w, active, n,
-                                     n_bins=cap, m=m) + corr
-                thetas[s: s + len(cols)] = vals.cpu().numpy()
+        if engine == "device":
+            # core folds + greedy loop + stopping rule as one device-resident
+            # loop (core/engine.py), one device→host transfer at the end
+            reduct, theta_hist, iterations, ev, per_iter_s = run_engine(
+                make_engine_run(*dataclasses.astuple(cfg), device=gran.device), gran.capacity,
+                A, gran.valid, gran.x, gran.d, gran.w, gran.n_total, theta_full, core,
+                warm_start=warm)
         else:
-            eval_bins = _eval_bins_for(k)
-            for s in range(0, len(remaining), nc):
-                cols = torch.tensor(remaining[s: s + nc], dtype=torch.int64, device=dev)
-                if backend in SWEEP_BACKENDS:
-                    vals = candidate_theta(
-                        delta, None, gran.d, gran.w, active, n, n_bins=eval_bins, m=m,
-                        backend=backend, x_t=x_t_full.index_select(0, cols),
-                        r_ids=r_ids, v_max=v, selector=selector)
-                else:
-                    x_cand = gran.x.index_select(1, cols).t()            # [nc, G]
-                    packed = pack_ids(r_ids[None, :], x_cand, v).contiguous()
-                    vals = candidate_theta(
-                        delta, packed, gran.d, gran.w, active, n, n_bins=eval_bins,
-                        m=m, backend=backend, selector=selector)
-                thetas[s: s + len(cols)] = (vals + corr).cpu().numpy()
-        n_evals += len(remaining)
-
-        best = measures.argmin_with_ties(thetas, tie_tol)  # paper line 13: argmin Θ
-        a_opt = remaining[best]
-
-        r_ids, k_new, theta_active, g_pure = adv(r_ids, gran.x[:, a_opt], active)
-        k = int(k_new)
-        theta_r = float(np.float32(float(theta_active)) + pr_correction)
-        reduct.append(a_opt)
-        remaining.remove(a_opt)
-        theta_hist.append(theta_r)
-        if shrink:
-            _shrink_step(g_pure)
-        iterations += 1
-        per_iter_s.append(time.perf_counter() - it0)
+            forced = core if warm is None else warm
+            with obs.span("reduce.greedy", forced=len(forced)):
+                reduct, theta_hist, iterations, ev, per_iter_s = _host_loop(
+                    cfg, gran, forced, theta_full)
+        n_evals += ev
+        sp.set(iterations=iterations, evaluations=n_evals, launches=_launches() - launches0)
 
     return ReductionResult(
         reduct=reduct,
@@ -514,6 +442,124 @@ def plar_reduce(
         elapsed_s=time.perf_counter() - t0,
         per_iteration_s=per_iter_s,
     )
+
+
+def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: float):
+    """The host greedy loop, one sync an iteration (the only loop that runs
+    the CUDA Θ kernels): fold the forced prefix, then add the argmin
+    candidate while Θ(D|R) is above the stopping target.  Returns
+    ``(reduct, theta_history, iterations, evaluations, per_iteration_s)``,
+    as :func:`~.engine.run_engine` does.  One ``reduce.iteration`` span an
+    iteration, ended by its read of Θ(D|R)."""
+    delta, mode, backend, v = cfg.delta, cfg.mode, cfg.backend, cfg.v_max
+    A, cap, m, n, dev = gran.n_attrs, gran.capacity, gran.n_dec, gran.n_total, gran.device
+    r_ids = torch.zeros((cap,), dtype=torch.int32, device=dev)
+    k = 1
+    active = gran.valid
+    # float32 accumulation of the shrink correction, as the JAX package keeps it
+    pr_correction = np.float32(0.0)
+    reduct: List[int] = []
+    theta_hist: List[float] = []
+    per_iter_s: List[float] = []
+    n_evals = 0
+
+    # The advance is the device engine's, at the full bin bound cap·V
+    # whatever the backend: Θ(D|R) is summed over the same rows on every
+    # path, which keeps theta histories byte-identical across engines,
+    # backends and the ladder.
+    def adv(r, a_col, act):
+        return _advance(cfg, _LOCAL, r, a_col, gran.d, gran.w, act, n)
+
+    def _eval_bins_for(k_):
+        if cfg.ladder:
+            return rung_for(k_, v, cfg.rungs)
+        # the XLA-twin backends keep the full bound (the JAX device engine's
+        # grouping); the kernel backends take the cheaper pow2 bound
+        return cap * v if backend in DEVICE_BACKENDS else next_pow2(max(k_, 1)) * v
+
+    # read-once candidate slab for the sweep backends, hoisted out of the loop
+    x_t_full = gran.x.t().contiguous() if backend in SWEEP_BACKENDS else None
+
+    # the stop threshold in f32 arithmetic, as the JAX drivers compute it
+    stop_thresh = measures.f32_threshold(theta_full, cfg.tol)
+    n_np = np.float32(host_int(n))
+
+    def _shrink_step(g_pure):
+        nonlocal pr_correction, active
+        if delta == "PR":
+            shed = np.float32(host_int(torch.where(g_pure, gran.w, torch.zeros_like(gran.w))
+                                       .sum()))
+            pr_correction = pr_correction - np.float32(shed / n_np)
+        active = active & ~g_pure
+
+    # fold the forced prefix (core attributes, or the warm-start prefix)
+    for a in forced:
+        r_ids, k_new, theta_r, g_pure = adv(r_ids, gran.x[:, a], active)
+        k = host_int(k_new)
+        reduct.append(a)
+        theta_hist.append(float(np.float32(host_float(theta_r)) + pr_correction))
+        if cfg.shrink:
+            _shrink_step(g_pure)
+
+    theta_r = theta_hist[-1] if theta_hist else float("inf")
+
+    remaining = [a for a in range(A) if a not in reduct]
+    iterations = 0
+    while remaining and theta_r > stop_thresh and len(reduct) < cfg.max_sel:
+        it0 = time.perf_counter()
+        nc = min(cfg.mp_chunk, max(len(remaining), 1))
+        corr = torch.tensor(float(pr_correction), dtype=torch.float32, device=dev)
+        with obs.span("reduce.iteration", i=iterations, candidates=len(remaining),
+                      chunks=-(-len(remaining) // nc)) as sp:
+            thetas = np.full((len(remaining),), np.inf, np.float64)
+            if mode == "spark":
+                # re-key from scratch: fingerprint of the current R columns
+                if reduct:
+                    hR1 = sum_terms(gran.x, reduct, 0)
+                    hR2 = sum_terms(gran.x, reduct, 7919)
+                else:
+                    hR1 = torch.zeros((cap,), dtype=torch.int64, device=dev)
+                    hR2 = torch.zeros((cap,), dtype=torch.int64, device=dev)
+                for s in range(0, len(remaining), nc):
+                    cols = remaining[s: s + nc]
+                    vals = _spark_thetas(delta, hR1, hR2, cols, gran.x, gran.d, gran.w, active,
+                                         n, n_bins=cap, m=m) + corr
+                    thetas[s: s + len(cols)] = to_host(vals).numpy()
+            else:
+                eval_bins = _eval_bins_for(k)
+                for s in range(0, len(remaining), nc):
+                    cols = torch.tensor(remaining[s: s + nc], dtype=torch.int64, device=dev)
+                    if backend in SWEEP_BACKENDS:
+                        vals = candidate_theta(
+                            delta, None, gran.d, gran.w, active, n, n_bins=eval_bins, m=m,
+                            backend=backend, x_t=x_t_full.index_select(0, cols),
+                            r_ids=r_ids, v_max=v, selector=cfg.selector)
+                    else:
+                        x_cand = gran.x.index_select(1, cols).t()            # [nc, G]
+                        packed = pack_ids(r_ids[None, :], x_cand, v).contiguous()
+                        vals = candidate_theta(
+                            delta, packed, gran.d, gran.w, active, n, n_bins=eval_bins,
+                            m=m, backend=backend, selector=cfg.selector)
+                    thetas[s: s + len(cols)] = to_host(vals + corr).numpy()
+            n_evals += len(remaining)
+
+            best = measures.argmin_with_ties(thetas, cfg.tie_tol)  # paper line 13: argmin Θ
+            a_opt = remaining[best]
+
+            r_ids, k_new, theta_active, g_pure = adv(r_ids, gran.x[:, a_opt], active)
+            k = host_int(k_new)
+            theta_r = float(np.float32(host_float(theta_active)) + pr_correction)
+            reduct.append(a_opt)
+            remaining.remove(a_opt)
+            theta_hist.append(theta_r)
+            if cfg.shrink:
+                _shrink_step(g_pure)
+            sp.set(k=k)
+        iterations += 1
+        per_iter_s.append(time.perf_counter() - it0)
+    return reduct, theta_hist, iterations, n_evals, per_iter_s
+
+
 
 
 # ---------------------------------------------------------------------------

@@ -15,18 +15,28 @@ Python indexing ask for one on every ``cuda`` tensor, fake or not.  The
 kernel wrappers treat meta operands as the card's
 (:func:`repro_torch.kernels.launching.modelled`): a shape-only twin of the
 kernel, never the plain version.
+
+:func:`to_host`, :func:`host_int` and :func:`host_float` are the reduction's
+and the service's device→host reads: each waits for the device's queued
+work, so each is counted, per thread (:func:`host_reads`, which spans read
+into their ``host_reads`` attribute) and in the process registry's
+``plar_host_reads_total`` (served on ``/metrics``).
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from contextvars import ContextVar
 from typing import Union
 
 import torch
 
+from repro_torch import obs
+
 DeviceLike = Union[str, torch.device]
 
-__all__ = ["DeviceLike", "MODEL_DEVICE", "modelling", "resolve_device"]
+__all__ = ["DeviceLike", "MODEL_DEVICE", "host_float", "host_int", "host_reads",
+           "modelling", "resolve_device", "to_host"]
 
 MODEL_DEVICE = torch.device("meta")      # the card's stand-in inside :func:`modelling`
 _MODELLING: ContextVar[bool] = ContextVar("repro_torch_modelling", default=False)
@@ -55,3 +65,41 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             f"device={str(device)!r} was asked for but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+class _Reads(threading.local):
+    n = 0
+
+
+_READS = _Reads()
+_HOST_READS = obs.counter(
+    "plar_host_reads_total",
+    "device-to-host reads of the reduction and the reduct service (each waits for the device)")
+
+
+def host_reads() -> int:
+    """The device→host reads this thread has made through this module."""
+    return _READS.n
+
+
+def _count() -> None:
+    _READS.n += 1
+    _HOST_READS.inc()
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``, counted as one host read."""
+    _count()
+    return t.cpu()
+
+
+def host_int(t: torch.Tensor) -> int:
+    """``int(t)`` of a one-element tensor, counted as one host read."""
+    _count()
+    return int(t)
+
+
+def host_float(t: torch.Tensor) -> float:
+    """``float(t)`` of a one-element tensor, counted as one host read."""
+    _count()
+    return float(t)

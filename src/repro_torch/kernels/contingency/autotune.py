@@ -90,6 +90,11 @@ DEFAULT_SELECTOR = "analytic"
 _CACHE_MAXSIZE = 256
 _CACHE: "OrderedDict[Tuple, Tuple[int, ...]]" = OrderedDict()
 _CACHE_STATS = {"hits": 0, "misses": 0}
+# registry handles, looked up once: resolve_tiles runs before every launch
+_DISK_HITS = obs.counter("plar_autotune_disk_hits_total",
+                         "tile resolutions served from the persisted tuning")
+_DISK_MISSES = obs.counter("plar_autotune_disk_misses_total",
+                           "tile resolutions that fell through to the analytic model")
 
 _DISK_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 _KEY_PREFIX = "repro_torch"
@@ -159,29 +164,18 @@ def resolve_tiles(
     if kernel not in TILE_FIELDS:
         raise ValueError(f"unknown kernel: {kernel!r} (one of: {', '.join(KERNELS)})")
     if mode == "pinned":
-        tiles = PINNED_TILES[kernel]
-        obs.event("autotune.resolve", kernel=kernel, mode=mode, tiles=repr(tiles))
-        return tiles
+        return PINNED_TILES[kernel]
     spec = device_spec(device)
     if mode == "heuristic":
-        tiles = select_block_sizes(n_bins, g, m, kernel=kernel, nc=nc, spec=spec)
-        obs.event("autotune.resolve", kernel=kernel, mode=mode, tiles=repr(tiles))
-        return tiles
+        return select_block_sizes(n_bins, g, m, kernel=kernel, nc=nc, spec=spec)
     # analytic: a persisted tuning for this (card, kernel, shape bucket) wins
     tuned = _disk_get(_disk_key(platform_of(device), kernel, shape_bucket(nc, g, n_bins, m)),
                       kernel)
     if tuned is not None:
-        obs.counter("plar_autotune_disk_hits_total",
-                    "tile resolutions served from the persisted tuning").inc()
-        obs.event("autotune.resolve", kernel=kernel, mode="analytic", source="disk",
-                  tiles=repr(tuned))
+        _DISK_HITS.inc()
         return tuned
-    obs.counter("plar_autotune_disk_misses_total",
-                "tile resolutions that fell through to the analytic model").inc()
-    tiles = select_tiles(kernel, nc, g, n_bins, m, v_max=v_max, delta=delta, spec=spec)
-    obs.event("autotune.resolve", kernel=kernel, mode="analytic", source="model",
-              tiles=repr(tiles))
-    return tiles
+    _DISK_MISSES.inc()
+    return select_tiles(kernel, nc, g, n_bins, m, v_max=v_max, delta=delta, spec=spec)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,9 @@ normalized ``[nc]`` Θ (fused, sweep) — the JAX package's wrapper contracts.
 Each wrapper takes its kernel's tiling as keywords (the fields of
 :data:`.model.TILE_FIELDS`: ``threads``/``ctas``, ``chunk``/``threads``,
 ``bc``/``chunk``/``threads``) and ``selector=``; a field left ``None`` is
-resolved by :func:`.autotune.resolve_tiles` for the launch's card, in plain
-Python before the launch, so a CUDA graph that captures the launch holds
-the tiles it was given.  The plain version needs no tiling and ignores it.
+resolved by :func:`resolve_tiles` (``autotune.py``) for the launch's card,
+in plain Python before the launch, so a CUDA graph that captures the launch
+holds the tiles it was given.  The plain version needs no tiling and ignores it.
 """
 from __future__ import annotations
 
@@ -107,7 +107,7 @@ def launch_tiles(kernel: str, given: Sequence[Optional[int]], *, selector: Optio
                  delta: str = "SCE") -> Tuple[int, ...]:
     """The tiling a launch takes: the ``given`` fields (in the order of
     :data:`.model.TILE_FIELDS`), each ``None`` filled from
-    :func:`.autotune.resolve_tiles` for ``device``."""
+    :func:`resolve_tiles` for ``device``."""
     if len(given) != len(TILE_FIELDS[kernel]):
         raise ValueError(f"{kernel} tiles are {TILE_FIELDS[kernel]}, got {tuple(given)}")
     if all(v is not None for v in given):

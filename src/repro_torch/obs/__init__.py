@@ -1,8 +1,9 @@
 """Observability: flight-recorder tracing + process metrics (DESIGN.md §3.11).
 
-The port's own copy of ``repro.obs`` (``trace.py`` and ``registry.py`` are
-verbatim), so the PyTorch package imports nothing of the JAX package while
-its spans and metrics keep the same names.  Two small host-side pieces
+The port's own copy of ``repro.obs`` (``registry.py`` verbatim; ``trace.py``
+with one addition, the public ``Tracer.epoch`` that ties span times to
+``time.perf_counter()``), so the PyTorch package imports nothing of the JAX
+package while its spans and metrics keep the same names.  Two small host-side pieces
 (stdlib only, safe to call from any layer, including module import time):
 
 * :mod:`repro_torch.obs.trace` — the span API and bounded ring buffer

@@ -70,7 +70,9 @@ class SpanRecord:
 
     ``ph`` is the Chrome-trace phase: ``"X"`` (complete span with
     duration) or ``"i"`` (instant event).  Times are seconds on the
-    tracer's ``perf_counter`` timeline; export converts to µs.
+    tracer's ``perf_counter`` timeline, relative to :attr:`Tracer.epoch`
+    (``epoch + t_start`` is a ``time.perf_counter()`` value); export
+    converts to µs.
     """
 
     __slots__ = ("name", "cat", "ph", "t_start", "dur", "tid", "args")
@@ -188,6 +190,13 @@ class Tracer:
         self.enabled = False
         return self
 
+    @property
+    def epoch(self) -> float:
+        """The ``time.perf_counter()`` value every record's ``t_start`` is
+        relative to: ``epoch + t_start`` lies on the process's
+        ``perf_counter`` clock (fixed for the tracer's life)."""
+        return self._epoch
+
     def clear(self) -> None:
         with self._lock:
             self._buf.clear()
@@ -266,6 +275,7 @@ class Tracer:
             "otherData": {
                 "recorded": self.recorded,
                 "dropped": self.dropped,
+                "perf_counter_epoch_s": self._epoch,
                 **(meta or {}),
             },
         }

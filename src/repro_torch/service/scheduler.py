@@ -160,12 +160,13 @@ class _Work:
     """One dataset's share of a batching window: its requests (arrival
     order) and the update batches captured for its coalesced merge."""
 
-    __slots__ = ("dataset", "requests", "batches", "merge_error", "merged")
+    __slots__ = ("dataset", "requests", "batches", "epoch", "merge_error", "merged")
 
     def __init__(self, dataset: str) -> None:
         self.dataset = dataset
         self.requests: List[Any] = []
         self.batches: List[Tuple[np.ndarray, np.ndarray]] = []
+        self.epoch = 0        # the dataset's update count once the batches fold
         self.merge_error: Optional[BaseException] = None
         self.merged = False
 
@@ -292,6 +293,7 @@ class Scheduler:
             work.requests.append(req)
         for work in works.values():
             work.batches = self.srv._pending.pop(work.dataset, [])
+            work.epoch = self.srv._epoch.get(work.dataset, 0)
         return list(works.values())
 
     # -- execution ----------------------------------------------------------
@@ -334,9 +336,10 @@ class Scheduler:
             return
         try:
             handle = srv._handles[work.dataset]
-            xs = np.concatenate([b[0] for b in work.batches])
-            ds = np.concatenate([b[1] for b in work.batches])
-            with obs.span("scheduler.merge", dataset=work.dataset,
+            with obs.span("scheduler.coalesce", dataset=work.dataset, epoch=work.epoch):
+                xs = np.concatenate([b[0] for b in work.batches])
+                ds = np.concatenate([b[1] for b in work.batches])
+            with obs.span("scheduler.merge", dataset=work.dataset, epoch=work.epoch,
                           batches=len(work.batches), rows=int(xs.shape[0])):
                 self._attempt("merge", lambda: handle.update(xs, ds))
             srv._bump("merges", 1)
@@ -363,6 +366,7 @@ class Scheduler:
         for req in work.requests:
             req.timing.mark_start()
             req.merged_batches = len(work.batches)
+            req.epoch = work.epoch
 
         outcome: Dict[int, Tuple[str, Any]] = {}
         # stackable misses: group key (sorted shared items) → list of
@@ -428,10 +432,11 @@ class Scheduler:
         srv = self.srv
         qkey = self._qkey(req)
         try:
-            with obs.span("scheduler.dispatch", dataset=req.dataset,
-                          delta=req.delta, kind="solo"):
+            with obs.span("scheduler.dispatch", dataset=req.dataset, epoch=req.epoch,
+                          delta=req.delta, kind="solo") as sp:
                 result = self._attempt(
                     "dispatch", lambda: handle.reduce(req.delta, **params))
+                sp.set(warm=handle.last_was_warm, prefix_kept=handle.last_prefix_kept)
         except BaseException as e:
             return self._dispatch_failed(qkey, e, qkey)
         srv._cache_put(key, result)
@@ -474,12 +479,13 @@ class Scheduler:
                    for cfg, _p, _r in members]
         n_queries = sum(len(reqs) for _c, _p, reqs in members)
         try:
-            with obs.span("scheduler.dispatch", dataset=members[0][2][0]
-                          .dataset, kind="stacked", configs=len(members),
-                          queries=n_queries):
+            lead = members[0][2][0]
+            with obs.span("scheduler.dispatch", dataset=lead.dataset, epoch=lead.epoch,
+                          kind="stacked", configs=len(members), queries=n_queries) as sp:
                 results, kept, was_warm = self._attempt(
                     "dispatch",
                     lambda: handle.reduce_many(queries, **shared))
+                sp.set(warm=any(was_warm), prefix_kept=max(kept, default=0))
         except BaseException:
             # stacked path failed: serve members individually — each solo
             # serve brings its own retry/quarantine/stale handling
@@ -539,8 +545,9 @@ class Scheduler:
             results.append(hit)
         if misses:
             try:
-                with obs.span("scheduler.dispatch", dataset=req.dataset,
-                              kind="ensemble", configs=len(misses)):
+                with obs.span("scheduler.dispatch", dataset=req.dataset, epoch=req.epoch,
+                              kind="ensemble", configs=len(misses), warm=False,
+                              prefix_kept=0):
                     fresh = self._attempt(
                         "dispatch",
                         lambda: handle.reduce_ensemble(

@@ -135,6 +135,7 @@ class ReduceRequest:
     warm: bool = False
     prefix_kept: int = 0
     merged_batches: int = 0
+    epoch: int = 0        # the dataset's update count its answer reflects
     batch_size: int = 0   # queries served by this request's engine dispatch
     latency_s: float = 0.0
 
@@ -322,11 +323,13 @@ class ReductServer:
         is rejected to its sender instead of poisoning the coalesced merge
         (which would silently drop the valid batches buffered beside it).
         """
-        handle = self._require(name)
-        x, d = handle.validate_batch(x, d)
-        self._pending.setdefault(name, []).append((x, d))
-        self._epoch[name] = self._epoch.get(name, 0) + 1
-        self.stats["updates"] += 1
+        with obs.span("server.update", dataset=name) as sp:
+            handle = self._require(name)
+            x, d = handle.validate_batch(x, d)
+            self._pending.setdefault(name, []).append((x, d))
+            self._epoch[name] = self._epoch.get(name, 0) + 1
+            self.stats["updates"] += 1
+            sp.set(epoch=self._epoch[name])
 
     async def query(self, name: str, delta: str = "PR",
                     **params) -> ReductionResult:

@@ -44,6 +44,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.granularity import Granularity, fold_chunk, row_fingerprints
 from repro_torch.core.guard import device_guard
 from repro_torch.core.measures import f32_threshold
@@ -56,7 +57,7 @@ from repro_torch.core.reduction import (
     resolve_granularity,
 )
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, to_host
 
 from .errors import ShardLost
 
@@ -88,7 +89,7 @@ def _fp_sums(x, d, w, valid):
     zero = torch.zeros((), dtype=torch.int64, device=x.device)
     sums = torch.stack([torch.where(valid, row_fingerprints(key, seed), zero).sum()
                         for seed in (_FP_SEED_1, _FP_SEED_2)]) & _MASK32
-    s1, s2 = (int(v) for v in sums.cpu())
+    s1, s2 = (int(v) for v in to_host(sums))
     return s1, s2
 
 
@@ -104,7 +105,8 @@ def granularity_fingerprint(gran: Granularity) -> int:
     linear row-fingerprint machinery of the GrC build with service-private
     seeds.
     """
-    s1, s2 = _fp_sums(gran.x, gran.d, gran.w, gran.valid)
+    with obs.span("service.fingerprint"):
+        s1, s2 = _fp_sums(gran.x, gran.d, gran.w, gran.valid)
     return (s1 << 32) | s2
 
 
@@ -158,24 +160,29 @@ def repair_reduce(gran: Granularity, prev_reduct: Sequence[int], *,
     the *current* granularity either way.
 
     Runs on the granularity's device unless ``params`` names another.
+    Span ``service.repair``: ``prev`` (the prefix handed to the warm start),
+    ``kept``, ``reruns`` (1 where the trimmed prefix ran again).
     """
     params = {"device": gran.device, **params}
     seen: set = set()
     prev = [int(a) for a in prev_reduct
             if 0 <= int(a) < gran.n_attrs
             and not (int(a) in seen or seen.add(int(a)))]
-    if not prev:
-        return plar_reduce(source=gran, delta=delta, **params), 0
+    with obs.span("service.repair", prev=len(prev)) as sp:
+        if not prev:
+            sp.set(kept=0, reruns=0)
+            return plar_reduce(source=gran, delta=delta, **params), 0
 
-    tol = float(params.get("tol", 1e-6))
-    tie_tol = float(params.get("tie_tol", 1e-5))
-    result = plar_reduce(source=gran, delta=delta, warm_start=prev, **params)
-    k = valid_prefix_len(result.theta_history[: len(prev)], result.theta_full,
-                         tol=tol, tie_tol=tie_tol)
-    if k == len(prev):
-        return result, k
-    result = plar_reduce(source=gran, delta=delta, warm_start=prev[:k],
-                         **params)
+        tol = float(params.get("tol", 1e-6))
+        tie_tol = float(params.get("tie_tol", 1e-5))
+        result = plar_reduce(source=gran, delta=delta, warm_start=prev, **params)
+        k = valid_prefix_len(result.theta_history[: len(prev)], result.theta_full,
+                             tol=tol, tie_tol=tie_tol)
+        sp.set(kept=k, reruns=int(k != len(prev)))
+        if k == len(prev):
+            return result, k
+        result = plar_reduce(source=gran, delta=delta, warm_start=prev[:k],
+                             **params)
     return result, k
 
 
@@ -379,25 +386,27 @@ class DatasetHandle:
 
         Exposed so the server can reject bad batches at ``update()`` time —
         before they are buffered next to valid ones — rather than losing the
-        whole coalesced merge at query time.
+        whole coalesced merge at query time.  Span ``service.validate``.
         """
-        x = np.asarray(x, np.int32)
-        d = np.asarray(d, np.int32)
-        if x.ndim != 2 or x.shape[1] != self.gran.n_attrs:
-            raise ValueError(
-                f"update batch has {x.shape[1] if x.ndim == 2 else '?'} "
-                f"attributes, dataset has {self.gran.n_attrs}")
-        if d.shape != (x.shape[0],):
-            raise ValueError(
-                f"decision shape {d.shape} does not match {x.shape[0]} rows")
-        if x.size and not 0 <= int(x.min()) <= int(x.max()) < self.gran.v_max:
-            raise ValueError(
-                f"update batch values [{int(x.min())}, {int(x.max())}] "
-                f"outside the declared v_max range [0, {self.gran.v_max})")
-        if d.size and not 0 <= int(d.min()) <= int(d.max()) < self.gran.n_dec:
-            raise ValueError(
-                f"update batch decisions [{int(d.min())}, {int(d.max())}] "
-                f"outside the declared n_dec range [0, {self.gran.n_dec})")
+        with obs.span("service.validate") as sp:
+            x = np.asarray(x, np.int32)
+            d = np.asarray(d, np.int32)
+            if x.ndim != 2 or x.shape[1] != self.gran.n_attrs:
+                raise ValueError(
+                    f"update batch has {x.shape[1] if x.ndim == 2 else '?'} "
+                    f"attributes, dataset has {self.gran.n_attrs}")
+            sp.set(rows=x.shape[0])
+            if d.shape != (x.shape[0],):
+                raise ValueError(
+                    f"decision shape {d.shape} does not match {x.shape[0]} rows")
+            if x.size and not 0 <= int(x.min()) <= int(x.max()) < self.gran.v_max:
+                raise ValueError(
+                    f"update batch values [{int(x.min())}, {int(x.max())}] "
+                    f"outside the declared v_max range [0, {self.gran.v_max})")
+            if d.size and not 0 <= int(d.min()) <= int(d.max()) < self.gran.n_dec:
+                raise ValueError(
+                    f"update batch decisions [{int(d.min())}, {int(d.max())}] "
+                    f"outside the declared n_dec range [0, {self.gran.n_dec})")
         return x, d
 
     def update(self, x, d) -> None:
