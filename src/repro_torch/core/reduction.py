@@ -169,19 +169,82 @@ def raw_granularity(x, d, *, n_dec: int, v_max: int,
 # ---------------------------------------------------------------------------
 
 
+_CODE_BOUND = 1 << 31  # the codes of a partition are held as int32
+
+
+def _rank_pairs(hi: torch.Tensor, hi_bound: int, lo: torch.Tensor, lo_bound: int,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Dense ranks of the pairs ``(hi, lo)``, ``hi`` primary, as
+    :func:`ids_by_sort` gives them (invalid slots 0).
+
+    ``hi < hi_bound`` and ``lo < lo_bound`` on valid slots.  Where every
+    packed key ``hi·lo_bound + lo`` stays below the sentinel 2³² - 1 it is
+    ranked as one key (one sort), else as two (two sorts).
+    """
+    if hi_bound * lo_bound < 1 << 32:
+        return ids_by_sort([hi.to(torch.int64) * lo_bound + lo], valid)[0]
+    return ids_by_sort([lo, hi], valid)[0]
+
+
+def _append_column(code: torch.Tensor, bound: int, col: torch.Tensor, v: int,
+                   valid: torch.Tensor, *, col_first: bool):
+    """An order-preserving int32 code of the pairs ``(code, col)``, or
+    ``(col, code)`` with ``col_first``, and its bound.
+
+    Mixed radix (``code·v + col``, ``col·bound + code``) while the bound
+    stays within 2³¹; past that ``code`` is ranked densely first (bound
+    ``cap``), and where even that is too wide the pairs are ranked.
+    """
+    cap = valid.shape[0]
+    if bound * v > _CODE_BOUND and bound > cap:
+        code, bound = ids_by_sort([code], valid)[0], cap
+    if bound * v > _CODE_BOUND:
+        pair = (col, v, code, bound) if col_first else (code, bound, col, v)
+        return _rank_pairs(*pair, valid), min(cap, bound * v)
+    return (col * bound + code if col_first else code * v + col), bound * v
+
+
 def _core_inner_thetas(gran: Granularity, delta: str, *, exact: bool) -> np.ndarray:
-    """Θ(D|C\\{a}) for every a ∈ C (paper lines 3–8, the core step)."""
+    """Θ(D|C\\{a}) for every a ∈ C (paper lines 3–8, the core step).
+
+    Exact (A ≤ 128): the ids of U/(C\\{a}) are the dense ranks of the
+    granules in the lexicographic order of the other columns, column 0 most
+    significant, as ``subset_ids(gran, C\\{a}, exact=True)`` gives them.
+    They come from two chains of single-column refinements instead of A sort
+    chains over A - 1 columns: the prefix partition ``P_a`` by columns
+    ``0..a-1`` (``P_{a+1}`` codes ``(P_a, x_a)``), the suffix partition
+    ``S_a`` by columns ``a+1..A-1`` (``S_a`` codes ``(x_{a+1}, S_{a+1})``),
+    and the ids rank ``(P_a, S_a)``.  A partition is held as an
+    order-preserving code of its columns (mixed radix over codes in
+    ``[0, v_max)``, :func:`_check_codes`; dense ranks where that grows too
+    wide), so ranking a lexicographic order gives the same ids whichever
+    way the order was coded, and the contingencies and Θ are the same bits.
+    The suffixes are held as one ``[A, cap]`` int32 tensor; the prefix is
+    carried.  One Θ is evaluated an attribute, all read in one host read.
+    """
     A = gran.n_attrs
     n_bins = gran.capacity  # ≤ G distinct classes always
     out = np.zeros((A,), np.float64)
+    if A == 0:
+        return out
 
     if exact and A <= 128:
+        cap, v, valid = gran.capacity, gran.v_max, gran.valid
+        suffix = torch.zeros((A, cap), dtype=torch.int32, device=gran.device)
+        s_bounds = [1] * A
+        for a in range(A - 2, -1, -1):
+            suffix[a], s_bounds[a] = _append_column(
+                suffix[a + 1], s_bounds[a + 1], gran.x[:, a + 1], v, valid, col_first=True)
+        prefix, p_bound = torch.zeros((cap,), dtype=torch.int32, device=gran.device), 1
+        thetas = []
         for a in range(A):
-            ids, _ = subset_ids(gran, [j for j in range(A) if j != a], exact=True)
-            cont = contingency_from_ids(ids, gran.d, gran.w, gran.valid,
-                                        n_bins=n_bins, m=gran.n_dec)
-            out[a] = host_float(measures.evaluate(delta, cont, gran.n_total))
-        return out
+            ids = _rank_pairs(prefix, p_bound, suffix[a], s_bounds[a], valid)
+            cont = contingency_from_ids(ids, gran.d, gran.w, valid, n_bins=n_bins, m=gran.n_dec)
+            thetas.append(measures.evaluate(delta, cont, gran.n_total))
+            if a < A - 1:
+                prefix, p_bound = _append_column(prefix, p_bound, gran.x[:, a], v, valid,
+                                                 col_first=False)
+        return to_host(torch.stack(thetas)).numpy().astype(np.float64)
 
     # Linear-sketch path: h(C\{a}) = h(C) - term_a  (mod 2³²).
     h1, h2 = row_fingerprints(gran.x, 0), row_fingerprints(gran.x, 7919)
@@ -406,7 +469,7 @@ def plar_reduce(
         # --- core (skipped under warm_start: the prefix stands in for it) ---
         core: List[int] = []
         if compute_core and warm is None:
-            with obs.span("reduce.core", n_attrs=A) as sp_core:
+            with _counted_span("reduce.core", n_attrs=A) as sp_core:
                 inner = _core_inner_thetas(gran, delta, exact=exact)
                 sig = inner - theta_full  # Θ(D|C\{a}) - Θ(D|C)
                 core = [int(a) for a in range(A) if sig[a] > eps + tie_tol]

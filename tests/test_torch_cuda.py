@@ -24,6 +24,12 @@ keys, plus arbitrary keys (not r·V + x) with sentinels and keys past
 n_bins, and G past 2^23 (where an ordered entry holds g alone).  Its
 results are the same bits on every run and (Θ_PR) as the sweep's.
 
+The core step at kdd99's shapes (100,000 of 131,072 slots live, 41
+columns, v_max 10, so a rank of two partitions takes two sort keys):
+the prefix/suffix partitions give the per-attribute sort chains' Θ bit
+for bit on the card, Θ_PR and Θ_SCE, with one host read in
+``reduce.core``.
+
 The device-resident engine (a CUDA graph of the greedy body, replayed)
 equals the host loop on the card bit for bit; one config captures once
 across calls, a second table of the same shape gets its own answer (the
@@ -62,9 +68,12 @@ solo evaluation on every form.
 import numpy as np
 import pytest
 import torch
+from _core_chain import core_by_subset_chains
 
-from repro_torch.core import engine, plar_reduce, plar_reduce_ensemble
+from repro_torch import obs
+from repro_torch.core import engine, granularity_from_numpy, plar_reduce, plar_reduce_ensemble
 from repro_torch.core.plan import candidate_theta
+from repro_torch.core.reduction import _core_inner_thetas
 from repro_torch.kernels.contingency import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -215,6 +224,45 @@ def test_plar_on_card_rejects_codes_past_v_max(cuda_device):
     assert ops.launch_counts()["sweep_theta"] == 0
     r = plar_reduce(x, d, v_max=5, backend="sweep", device=cuda_device)
     assert r.reduct == plar_reduce(x, d, v_max=5, backend="sweep", device="cpu").reduct
+
+
+def _kdd99_shaped_granularity(dev, seed=27):
+    """100,000 live granules in kdd99's capacity of 131,072, 41 columns at
+    v_max 10 and 23 decisions: codes mostly 0 and 0.4 of the columns copies,
+    so that dropping a column merges some granules and Θ differs by column."""
+    cap, live, a, v, m = 131_072, 100_000, 41, 10, 23
+    rng = np.random.default_rng(seed)
+    x = np.where(rng.random((cap, a)) < 0.7, 0, rng.integers(1, v, (cap, a))).astype(np.int32)
+    for j in range(1, a):
+        if rng.random() < 0.4:
+            x[:, j] = x[:, rng.integers(0, j)]
+    valid = np.arange(cap) < live
+    w = np.where(valid, rng.integers(1, 50, cap), 0).astype(np.int32)
+    d = rng.integers(0, m, cap).astype(np.int32)
+    return granularity_from_numpy(x, d, w, valid, live, int(w.sum()), n_attrs=a, n_dec=m,
+                                  v_max=v, device=dev)
+
+
+@pytest.mark.parametrize("delta", ["PR", "SCE"])
+def test_core_partitions_equal_sort_chains_at_kdd99_shape(cuda_device, delta):
+    gran = _kdd99_shaped_granularity(cuda_device)
+    assert gran.capacity ** 2 >= 1 << 32             # the final ranks take two keys
+    got = _core_inner_thetas(gran, delta, exact=True)
+    want = core_by_subset_chains(gran, delta)
+    assert np.array_equal(got, want)
+    assert len(np.unique(got)) > 1                   # not every column alike
+    tracer = obs.get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracer.enable()
+    try:
+        r = plar_reduce(source=gran, delta=delta, backend="sweep", device=cuda_device)
+        (core,) = [s for s in tracer.records() if s.ph == "X" and s.name == "reduce.core"]
+    finally:
+        tracer.clear()
+        tracer.enabled = was
+    assert core.args["host_reads"] == 1
+    assert core.args["core"] == len(r.core)
 
 
 @pytest.mark.parametrize("delta", DELTAS)

@@ -16,6 +16,15 @@ Also here: shrink, spark mode / HAR / FSPA, ``max_features``,
 ``warm_start``, the ladder, a granularity carried across from JAX, the CLI
 with ``--device cpu``, and a subprocess check that the port imports nothing
 of JAX or ``repro``.
+
+The core step (``_core_inner_thetas``) alone, on granularities with
+redundant columns, padding slots holding codes, duplicate rows of
+different decisions, 24 columns (codes too wide for int32, ranked),
+A = 0, 1 and 2, and keys wide enough to need two sort keys: bit for bit
+against the per-attribute sort chains it replaced
+(``tests/_core_chain.py``) and against the JAX package's core (Θ_PR bit
+for bit, the others within the tolerances above); its ``exact=False``
+sketch path unchanged.
 """
 import json
 import os
@@ -23,19 +32,28 @@ import subprocess
 import sys
 from functools import lru_cache
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _core_chain import core_by_subset_chains
 
 from repro.core import fspa_reduce as j_fspa
 from repro.core import har_reduce as j_har
 from repro.core import plar_reduce as j_plar
+from repro.core.granularity import Granularity as JGranularity
 from repro.core.granularity import build_granularity as j_build
+from repro.core.plan import theta_for_ids as j_theta_for_ids
+from repro.core.reduction import _core_inner_thetas as j_core
 from repro.data import scaled_paper_dataset
 from repro_torch.core import fspa_reduce as t_fspa
 from repro_torch.core import granularity_from_numpy
 from repro_torch.core import har_reduce as t_har
+from repro_torch.core import measures
 from repro_torch.core import plar_reduce as t_plar
+from repro_torch.core.granularity import column_terms, row_fingerprints
+from repro_torch.core.plan import contingency_from_ids, ids_by_sort
+from repro_torch.core.reduction import _core_inner_thetas as t_core
 
 # The tensors here are tiny: PyTorch's intra-op thread pool only adds
 # overhead, and across pytest-xdist workers it oversubscribes the cores.
@@ -413,3 +431,106 @@ def test_tensor_inputs_and_cpu_results_are_plain_floats():
     assert all(isinstance(v, float) for v in r.theta_history)
     rn = t_plar(x, d, delta="PR", device=CPU)         # numpy inputs: same answer
     assert (r.reduct, r.core, r.theta_history) == (rn.reduct, rn.core, rn.theta_history)
+
+
+def _core_granularity(case):
+    """numpy ``(x, d, w, valid, v_max, n_dec)`` of one granularity for the core tests."""
+    rng = np.random.default_rng(CORE_CASES.index(case) + 31)
+    if case == "grc_redundant":            # GrC granules of a table with copied columns
+        x, d = _random_table(11, 400, 9, vmax=4, m=3, redundancy=0.6)
+        g = j_build(x, d, n_dec=3, v_max=4)   # capacity 400 > the live count
+        return (np.asarray(g.x), np.asarray(g.d), np.asarray(g.w), np.asarray(g.valid), 4, 3)
+    if case == "padding_with_codes":       # dead slots interleaved, holding codes
+        cap, a, v = 256, 6, 3
+        x, d = _random_table(12, cap, a, vmax=v, m=2)
+        valid = rng.random(cap) < 0.45
+        w = np.where(valid, rng.integers(1, 6, cap), 0).astype(np.int32)
+        return x, d, w, valid, v, 2
+    if case == "duplicate_rows":           # each row thrice, with its own decisions
+        x = np.repeat(rng.integers(0, 3, (60, 5)).astype(np.int32), 3, axis=0)
+        d = rng.integers(0, 3, len(x)).astype(np.int32)
+        return x, d, np.ones(len(x), np.int32), np.ones(len(x), bool), 3, 3
+    if case == "many_columns":             # 24 columns at v_max 3: codes past 2³¹ are ranked
+        x = np.where(rng.random((500, 24)) < 0.8, 0, rng.integers(1, 3, (500, 24)))
+        d = rng.integers(0, 3, len(x))
+        g = j_build(x.astype(np.int32), d.astype(np.int32), n_dec=3, v_max=3)
+        return (np.asarray(g.x), np.asarray(g.d), np.asarray(g.w), np.asarray(g.valid), 3, 3)
+    narrow = ("no_attrs", "one_attr", "two_attrs")
+    if case in narrow:
+        x, d = _random_table(13, 90, narrow.index(case), vmax=3, m=2)
+        return x, d, np.ones(len(x), np.int32), np.ones(len(x), bool), 3, 2
+    # wide_keys: cap · v_max = 2³², so every rank of a partition and a column,
+    # and of two partitions, takes two keys
+    cap, live, v = 65536, 300, 65536
+    x = np.zeros((cap, 4), np.int32)
+    x[:live] = rng.choice(np.array([0, 1, v - 1], np.int32), size=(live, 4))
+    x[:live, 3] = x[:live, 0]
+    d = np.zeros((cap,), np.int32)
+    d[:live] = rng.integers(0, 2, live)
+    valid = np.arange(cap) < live
+    return x, d, valid.astype(np.int32), valid, v, 2
+
+
+CORE_CASES = ("grc_redundant", "padding_with_codes", "duplicate_rows", "many_columns",
+              "no_attrs", "one_attr", "two_attrs", "wide_keys")
+
+
+@lru_cache(maxsize=None)
+def _core_grans(case):
+    """The same granularity for the port (CPU) and the JAX package."""
+    x, d, w, valid, v, m = _core_granularity(case)
+    num, n_total = int(valid.sum()), int(w[valid].sum())
+    tg = granularity_from_numpy(x, d, w, valid, num, n_total, n_attrs=x.shape[1],
+                                n_dec=m, v_max=v, device=CPU)
+    jg = JGranularity(x=jnp.asarray(x), d=jnp.asarray(d), w=jnp.asarray(w),
+                      valid=jnp.asarray(valid), num=jnp.int32(num),
+                      n_total=jnp.int32(n_total), n_attrs=x.shape[1], n_dec=m, v_max=v)
+    return tg, jg
+
+
+def _assert_thetas(delta, got, want):
+    if delta == "PR":
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("case", CORE_CASES)
+@pytest.mark.parametrize("delta", DELTAS)
+def test_core_from_prefix_and_suffix_partitions(delta, case):
+    """The exact core equals the per-attribute sort chains bit for bit, and
+    the JAX package's core (whose lexsort takes no empty key list: at A = 1
+    its reference is Θ of the one class U/∅)."""
+    tg, jg = _core_grans(case)
+    got = t_core(tg, delta, exact=True)
+    assert got.dtype == np.float64 and got.shape == (tg.n_attrs,)
+    assert np.array_equal(got, core_by_subset_chains(tg, delta))
+    if tg.n_attrs == 1:
+        want = [float(j_theta_for_ids(delta, jnp.zeros((jg.capacity,), jnp.int32), jg,
+                                      n_bins=jg.capacity))]
+    else:
+        want = j_core(jg, delta, exact=True)
+    _assert_thetas(delta, got, want)
+
+
+def _core_by_sketch(gran, delta):
+    """``_core_inner_thetas(exact=False)`` as it stood: h(C\\{a}) = h(C) - term_a."""
+    A, mask = gran.n_attrs, 0xFFFFFFFF
+    h1, h2 = row_fingerprints(gran.x, 0), row_fingerprints(gran.x, 7919)
+    out = np.zeros((A,), np.float64)
+    for a in range(A):
+        t1 = column_terms(gran.x[:, a], a, A, 0)
+        t2 = column_terms(gran.x[:, a], a, A, 7919)
+        ids, _ = ids_by_sort([(h2 - t2) & mask, (h1 - t1) & mask], gran.valid)
+        cont = contingency_from_ids(ids, gran.d, gran.w, gran.valid,
+                                    n_bins=gran.capacity, m=gran.n_dec)
+        out[a] = float(measures.evaluate(delta, cont, gran.n_total))
+    return out
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+def test_core_sketch_path_unchanged(delta):
+    tg, jg = _core_grans("padding_with_codes")
+    got = t_core(tg, delta, exact=False)
+    assert np.array_equal(got, _core_by_sketch(tg, delta))
+    _assert_thetas(delta, got, j_core(jg, delta, exact=False))

@@ -102,7 +102,8 @@ def test_span_tree_of_one_reduction(tracer, delta, core):
     assert plar.args["launches"] == 0                       # the CPU runs the plain versions
     assert greedy.args["forced"] == len(r.core)
     if core:
-        assert by["reduce.core"][0].args == {"n_attrs": x.shape[1], "core": len(r.core)}
+        assert by["reduce.core"][0].args == {"n_attrs": x.shape[1], "core": len(r.core),
+                                             "host_reads": 1}
     its = [s.args for s in by["reduce.iteration"]]
     assert [a["i"] for a in its] == list(range(r.iterations))
     assert all(a["chunks"] == 1 and a["k"] >= 1 for a in its)
