@@ -64,6 +64,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs
+from repro_torch.device import to_host
 
 from . import measures
 from .guard import device_guard
@@ -994,10 +995,10 @@ def run_engine(runner, cap: int, n_attrs: int, valid, x, d, w, n, theta_full: fl
 
 
 def _to_host(order: torch.Tensor, hist: torch.Tensor, nsel: torch.Tensor):
-    """``order``, ``theta_history`` and ``n_selected`` in one device→host
-    transfer (the f32 history travels as its int32 bits)."""
-    flat = torch.cat([order.reshape(-1), hist.reshape(-1).view(torch.int32),
-                      nsel.reshape(-1)]).cpu().numpy()
+    """``order``, ``theta_history`` and ``n_selected`` in one counted
+    device→host read (the f32 history travels as its int32 bits)."""
+    flat = to_host(torch.cat([order.reshape(-1), hist.reshape(-1).view(torch.int32),
+                              nsel.reshape(-1)])).numpy()
     a, b = order.numel(), hist.numel()
     return (flat[:a].reshape(order.shape), flat[a: a + b].view(np.float32).reshape(hist.shape),
             flat[a + b:].reshape(nsel.shape))

@@ -25,9 +25,12 @@ one stacked engine loop.
 Spans (``repro_torch.obs``, recorded when tracing is on): ``reduce.granulate``
 (:func:`resolve_granularity`), ``reduce.plar`` (one :func:`plar_reduce`)
 and, on its host loop, ``reduce.theta_full``, ``reduce.core``,
-``reduce.greedy`` and one ``reduce.iteration`` a greedy iteration.  Each
-ends at a host read of the device work it covers (``repro_torch.device``'s
-counted reads), so its end is the device's; none adds a synchronize.
+``reduce.greedy`` and one ``reduce.iteration`` a greedy iteration;
+``reduce.ensemble`` (one :func:`plar_reduce_ensemble` past its granulation,
+to the read of the grid's answers) holds one ``reduce.theta_full`` and one
+``reduce.core`` a config that computes its core.  Each ends at a host read
+of the device work it covers (``repro_torch.device``'s counted reads), so
+its end is the device's; none adds a synchronize.
 """
 from __future__ import annotations
 
@@ -734,9 +737,12 @@ def bagged_weights(gran: Granularity, seed: int) -> np.ndarray:
     granularity itself is shared by every bag; zero-weight granules stay
     live and contribute 0 to every contingency.
     """
-    w = gran.w.cpu().numpy().astype(np.int64)
-    valid = gran.valid.cpu().numpy()
-    live = np.where(valid, w, 0)
+    return _bag(to_host(gran.w).numpy(), to_host(gran.valid).numpy(), seed)
+
+
+def _bag(w: np.ndarray, valid: np.ndarray, seed: int) -> np.ndarray:
+    """:func:`bagged_weights` of host copies of ``gran.w`` and ``gran.valid``."""
+    live = np.where(valid, w.astype(np.int64), 0)
     total = int(live.sum())
     if total <= 0:
         raise ValueError("cannot bag an empty granularity")
@@ -795,69 +801,76 @@ def plar_reduce_ensemble(
     gran = resolve_granularity(
         x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
         exact=exact, chunk_rows=chunk_rows, device=device)
-    _check_codes(gran)
     dev = gran.device
 
     A = gran.n_attrs
     m = gran.n_dec
     cap = gran.capacity
     C = len(cfgs)
+    deltas = [c["delta"] for c in cfgs]
 
-    # Θ(D|C) ids are w-independent: computed once for the whole grid
-    ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
-
-    base_w = gran.w.cpu().numpy().astype(np.int32)
-    valid = gran.valid.cpu().numpy()
     ws = np.zeros((C, cap), np.int32)
     core_attrs = np.zeros((C, max(A, 1)), np.int32)
     core_counts = np.zeros((C,), np.int32)
-    theta_fulls = np.zeros((C,), np.float64)
     ns = np.zeros((C,), np.int64)
     cores: List[List[int]] = []
     evals0 = np.zeros((C,), np.int64)
 
-    for j, c in enumerate(cfgs):
-        w_j = bagged_weights(gran, c["seed"]) if c["seed"] is not None else base_w
-        n_j = int(np.where(valid, w_j, 0).sum())
-        ws[j] = w_j
-        ns[j] = n_j
-        w_t = torch.as_tensor(w_j, device=dev)
-        n_t = torch.tensor(n_j, dtype=torch.int32, device=dev)
-        cont_j = contingency_from_ids(ids_c, gran.d, w_t, gran.valid, n_bins=cap, m=m)
-        theta_fulls[j] = float(measures.evaluate(c["delta"], cont_j, n_t))
+    with _counted_span("reduce.ensemble", configs=C, deltas=",".join(deltas),
+                       backend=backend) as sp:
+        # Θ(D|C) of every config; its ids are w-independent, computed once for the grid
+        with obs.span("reduce.theta_full"):
+            _check_codes(gran)
+            ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
+            base_w = to_host(gran.w).numpy().astype(np.int32)
+            valid = to_host(gran.valid).numpy()
+            grans, thetas = [], []
+            for j, c in enumerate(cfgs):
+                ws[j] = base_w if c["seed"] is None else _bag(base_w, valid, c["seed"])
+                ns[j] = int(np.where(valid, ws[j], 0).sum())
+                w_t = torch.as_tensor(ws[j], device=dev)
+                n_t = torch.tensor(ns[j], dtype=torch.int32, device=dev)
+                grans.append(gran if c["seed"] is None
+                             else dataclasses.replace(gran, w=w_t, n_total=n_t))
+                cont_j = contingency_from_ids(ids_c, gran.d, w_t, gran.valid, n_bins=cap, m=m)
+                thetas.append(measures.evaluate(c["delta"], cont_j, n_t))
+            theta_fulls = to_host(torch.stack(thetas)).numpy().astype(np.float64)
 
-        core_j: List[int] = []
-        if c["warm_start"] is not None:
-            # the prefix stands in for the core, as in plar_reduce(warm_start=)
-            forced_j = _validate_warm_start(c["warm_start"], A)
-            core_attrs[j, : len(forced_j)] = forced_j
-            core_counts[j] = len(forced_j)
-        elif c["compute_core"]:
-            gran_j = gran if c["seed"] is None else dataclasses.replace(gran, w=w_t, n_total=n_t)
-            inner = _core_inner_thetas(gran_j, c["delta"], exact=exact)
-            sig = inner - theta_fulls[j]
-            core_j = [int(a) for a in range(A) if sig[a] > c["eps"] + c["tie_tol"]]
-            evals0[j] = A
-            core_attrs[j, : len(core_j)] = core_j
-            core_counts[j] = len(core_j)
-        cores.append(core_j)
+        for j, c in enumerate(cfgs):
+            core_j: List[int] = []
+            if c["warm_start"] is not None:
+                # the prefix stands in for the core, as in plar_reduce(warm_start=)
+                forced_j = _validate_warm_start(c["warm_start"], A)
+                core_attrs[j, : len(forced_j)] = forced_j
+                core_counts[j] = len(forced_j)
+            elif c["compute_core"]:
+                with _counted_span("reduce.core", n_attrs=A, delta=c["delta"]) as sp_core:
+                    inner = _core_inner_thetas(grans[j], c["delta"], exact=exact)
+                    sig = inner - theta_fulls[j]
+                    core_j = [int(a) for a in range(A) if sig[a] > c["eps"] + c["tie_tol"]]
+                    sp_core.set(core=len(core_j))
+                evals0[j] = A
+                core_attrs[j, : len(core_j)] = core_j
+                core_counts[j] = len(core_j)
+            cores.append(core_j)
 
-    ops = EnsembleOperands(
-        tol=torch.tensor([c["tol"] for c in cfgs], dtype=torch.float32, device=dev),
-        tie_tol=torch.tensor([c["tie_tol"] for c in cfgs], dtype=torch.float32, device=dev),
-        max_sel=torch.tensor([A if c["max_features"] is None else int(c["max_features"])
-                              for c in cfgs], dtype=torch.int32, device=dev),
-        shrink=torch.tensor([bool(c["shrink"]) for c in cfgs], device=dev),
-        theta_full=torch.tensor(theta_fulls, dtype=torch.float32, device=dev),
-        n=torch.tensor(ns, dtype=torch.int32, device=dev),
-        w=torch.as_tensor(ws, device=dev),
-        core_attrs=torch.as_tensor(core_attrs, device=dev),
-        core_count=torch.as_tensor(core_counts, device=dev),
-    )
-    runner = make_ensemble_run(mode, backend, [c["delta"] for c in cfgs], A, cap, m,
-                               gran.v_max, int(mp_chunk), bool(ladder), str(selector))
-    fin, loop_s = run_ensemble(runner, cap, A, gran.valid, gran.x, gran.d, ops)
-    per_cfg = unpack_ensemble_result(fin, core_counts)
+        ops = EnsembleOperands(
+            tol=torch.tensor([c["tol"] for c in cfgs], dtype=torch.float32, device=dev),
+            tie_tol=torch.tensor([c["tie_tol"] for c in cfgs], dtype=torch.float32, device=dev),
+            max_sel=torch.tensor([A if c["max_features"] is None else int(c["max_features"])
+                                  for c in cfgs], dtype=torch.int32, device=dev),
+            shrink=torch.tensor([bool(c["shrink"]) for c in cfgs], device=dev),
+            theta_full=torch.tensor(theta_fulls, dtype=torch.float32, device=dev),
+            n=torch.tensor(ns, dtype=torch.int32, device=dev),
+            w=torch.as_tensor(ws, device=dev),
+            core_attrs=torch.as_tensor(core_attrs, device=dev),
+            core_count=torch.as_tensor(core_counts, device=dev),
+        )
+        runner = make_ensemble_run(mode, backend, deltas, A, cap, m,
+                                   gran.v_max, int(mp_chunk), bool(ladder), str(selector))
+        fin, loop_s = run_ensemble(runner, cap, A, gran.valid, gran.x, gran.d, ops)
+        per_cfg = unpack_ensemble_result(fin, core_counts)
+        sp.set(bodies=runner.loop.last_bodies)
 
     elapsed = time.perf_counter() - t0
     total_bodies = sum(len(r[0]) for r in per_cfg)
