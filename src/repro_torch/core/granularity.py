@@ -9,7 +9,12 @@ numpy inputs):
 
 * Rows are fingerprinted with a *linear* polynomial hash
   ``h(row) = Σ_j mix32(x[:, j] ⊕ seed_j) · m_j (mod 2³²)`` with two seeds.
-* "unique rows" is a lexsort + adjacent-compare + segment sum.
+* "unique rows" is a lexsort + adjacent-compare + segment sum.  The sort
+  keys are the two fingerprints and the decision alone; JAX also sorts on
+  every column below them.  Where no run of equal keys holds two different
+  rows, those column sorts all tie and the orders are equal; the build
+  checks that and otherwise sorts on every column too
+  (:func:`build_granularity`).
 * The output table is padded to a static capacity with a validity mask;
   ``num`` carries the live granule count.
 
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -50,6 +56,7 @@ __all__ = [
     "column_terms",
     "dyn_column_terms",
     "row_fingerprints",
+    "chain_fallbacks",
     "regranulate",
     "pack_ids",
     "presence_bitmap",
@@ -241,34 +248,75 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return order
 
 
-def _sort_keys(x, d, valid, exact: bool, seed: int):
-    """Sort keys grouping equal rows; invalid rows sort to the end."""
+def _pack(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """One int64 key whose order is the unsigned order of the uint32 pair
+    ``(hi, lo)``: ``hi`` is biased into the signed range, so nothing overflows.
+    """
+    return (hi - (1 << 31)) * (1 << 32) + lo
+
+
+# the packed key of an invalid slot, (SENTINEL, SENTINEL): the int64 maximum
+_PACKED_SENTINEL = (SENTINEL - (1 << 31)) * (1 << 32) + SENTINEL
+
+
+def _key_order(x, d, valid, seed: int):
+    """Order rows on the fingerprint keys alone: ``(h1, h2, d)``, invalid rows
+    last, in two stable sorts (``h1`` and ``h2`` packed into one key).
+
+    Returns the order and the sorted raw keys ``(h1, h2)`` packed and ``d``;
+    each row is hashed once.  Equal rows have equal keys, so equal (row,
+    decision) pairs are neighbours; whether a run of equal keys holds two
+    different rows is checked after the gather (:func:`build_granularity`).
+    """
+    hp = _pack(row_fingerprints(x, seed), row_fingerprints(x, seed + 7919))
+    du = _as_u32(d)
+    order = lexsort((torch.where(valid, du, SENTINEL),
+                     torch.where(valid, hp, _PACKED_SENTINEL)))
+    return order, hp[order], du[order]
+
+
+def _chain_order(x, d, valid, seed: int):
+    """The column chain's order: ``(h1, h2, d)`` first, then every column
+    breaks what the fingerprints tie, so no run of equal keys holds two
+    different rows whatever the hash gives; invalid rows last.
+    """
     sentinel = torch.tensor(SENTINEL, dtype=torch.int64, device=x.device)
     h1 = torch.where(valid, row_fingerprints(x, seed), sentinel)
     h2 = torch.where(valid, row_fingerprints(x, seed + 7919), sentinel)
     du = torch.where(valid, _as_u32(d), sentinel)
-    if exact:
-        # Primary: fingerprints (cheap bucketing); within buckets, the actual
-        # columns break hash collisions, making the grouping collision-free.
-        # Each column key is made when the sort chain reaches it: all of them
-        # at once are [n, A] int64 (13 GB at sdss's 320,000 x 5,201).
-        cols = (torch.where(valid, _as_u32(x[:, j]), sentinel)
-                for j in reversed(range(x.shape[1])))
-        keys = itertools.chain(cols, (du, h2, h1))  # last key = primary
-    else:
-        keys = (du, h2, h1)
-    return lexsort(keys), (h1, h2, du)
+    # Each column key is made when the sort chain reaches it: all of them
+    # at once are [n, A] int64 (13 GB at sdss's 320,000 x 5,201).
+    cols = (torch.where(valid, _as_u32(x[:, j]), sentinel)
+            for j in reversed(range(x.shape[1])))
+    return lexsort(itertools.chain(cols, (du, h2, h1)))  # last key = primary
 
 
-def _boundaries(x_s, d_s, valid_s, hashes_s, exact: bool) -> torch.Tensor:
-    if exact:
-        neq = (x_s[1:] != x_s[:-1]).any(dim=-1) | (d_s[1:] != d_s[:-1])
-    else:
-        neq = torch.zeros(x_s.shape[0] - 1, dtype=torch.bool, device=x_s.device)
-        for h in hashes_s:
-            neq = neq | (h[1:] != h[:-1])
-    first = torch.ones((1,), dtype=torch.bool, device=x_s.device)
-    return torch.cat([first, neq]) & valid_s
+def _neighbours_differ(*cols: torch.Tensor) -> torch.Tensor:
+    """bool [n-1]: row i+1 differs from row i in some of ``cols``."""
+    neq = torch.zeros(max(cols[0].shape[0] - 1, 0), dtype=torch.bool, device=cols[0].device)
+    for c in cols:
+        c = c[1:] != c[:-1]
+        neq = neq | (c.any(dim=-1) if c.dim() > 1 else c)
+    return neq
+
+
+# Builds made again on the column chain: in the process registry, and per
+# thread for the ``fallbacks`` attribute of the ``reduce.granulate`` span.
+_CHAIN_FALLBACKS = obs.counter(
+    "plar_granulate_chain_fallbacks_total",
+    "GrC builds whose fingerprint keys grouped two different rows, made again on the column chain")
+
+
+class _Fallbacks(threading.local):
+    n = 0
+
+
+_FALLBACKS = _Fallbacks()
+
+
+def chain_fallbacks() -> int:
+    """The builds this thread has made again on the column chain."""
+    return _FALLBACKS.n
 
 
 def build_granularity(
@@ -288,21 +336,67 @@ def build_granularity(
     Runs on ``x``'s device.  Accepting input weights makes this the merge
     step of the streaming build too (re-granulating a concatenation of
     granule tables merges duplicate keys exactly).
+
+    Rows are sorted on their fingerprint keys alone.  ``exact`` then counts
+    the neighbours whose keys are equal and whose rows or decisions are not,
+    and reads the count once, after the whole build is queued.  With none,
+    each run of equal keys is one distinct row, the column chain's sorts
+    would all tie inside it, and its order is this one: the granules are the
+    chain's bit for bit.  With any, the build is made again on the column
+    chain (:func:`_chain_order`) and ``plar_granulate_chain_fallbacks_total``
+    rises.
     """
-    n, n_attrs = x.shape
-    dev = x.device
+    n = x.shape[0]
     cap = capacity or n
     if w is None:
-        w = torch.ones((n,), dtype=torch.int32, device=dev)
+        w = torch.ones((n,), dtype=torch.int32, device=x.device)
     if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        valid = torch.ones((n,), dtype=torch.bool, device=x.device)
     w = torch.where(valid, w, torch.zeros_like(w))
 
-    order, _ = _sort_keys(x, d, valid, exact, seed)
-    x_s, d_s, w_s, valid_s = x[order], d[order], w[order], valid[order]
-    h1s = row_fingerprints(x_s, seed)
-    h2s = row_fingerprints(x_s, seed + 7919)
-    b = _boundaries(x_s, d_s, valid_s, (h1s, h2s, _as_u32(d_s)), exact)
+    order, hp_s, du_s = _key_order(x, d, valid, seed)
+    valid_s = valid[order]
+    if exact:
+        # the sort's own keys: every invalid slot holds the sentinel
+        hp_s = torch.where(valid_s, hp_s, _PACKED_SENTINEL)
+        du_s = torch.where(valid_s, du_s, SENTINEL)
+    key_neq = _neighbours_differ(hp_s, du_s)
+    del hp_s, du_s               # gone before the rows are gathered
+    g, collisions = _granulate(x, d, w, order, valid_s, key_neq, exact,
+                               n_dec=n_dec, v_max=v_max, cap=cap)
+    if exact and host_int(collisions):
+        del g, order, valid_s, key_neq       # freed before the chain's build
+        _CHAIN_FALLBACKS.inc()
+        _FALLBACKS.n += 1
+        order = _chain_order(x, d, valid, seed)
+        g, _ = _granulate(x, d, w, order, valid[order], None, True,
+                          n_dec=n_dec, v_max=v_max, cap=cap)
+    return g
+
+
+def _granulate(x, d, w, order, valid_s, key_neq, exact: bool, *,
+               n_dec: int, v_max: int, cap: int):
+    """The granules of the rows taken in ``order``.
+
+    Boundaries are where rows or decisions change (``exact``) or where the
+    keys change (``key_neq``).  Returns the granularity and, when ``exact``
+    and ``key_neq`` are given, the count of neighbours with equal keys and
+    different rows (a device scalar; a valid row beside an invalid one
+    counts), else ``None``.
+    """
+    n_attrs = x.shape[1]
+    dev = x.device
+    x_s, d_s, w_s = x[order], d[order], w[order]
+    collisions = None
+    if exact:
+        neq = _neighbours_differ(x_s, d_s)
+        if key_neq is not None:
+            both = valid_s[1:] & valid_s[:-1]
+            differ = torch.where(both, neq, valid_s[1:] ^ valid_s[:-1])
+            collisions = (differ & ~key_neq).sum()
+    else:
+        neq = key_neq
+    b = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), neq]) & valid_s
 
     ids = torch.cumsum(b.to(torch.int64), dim=0) - 1
     # clip, as JAX does: on overflow (num > cap) valid rows pile into cap-1 and
@@ -332,7 +426,7 @@ def build_granularity(
         n_attrs=n_attrs,
         n_dec=n_dec,
         v_max=v_max,
-    )
+    ), collisions
 
 
 def next_pow2(v: int) -> int:

@@ -66,6 +66,7 @@ from .granularity import (
     Granularity,
     build_granularity,
     build_granularity_streaming,
+    chain_fallbacks,
     column_terms,
     next_pow2,
     pack_ids,
@@ -321,36 +322,41 @@ def resolve_granularity(
       inferred from the data when not given.
 
     Span ``reduce.granulate`` (``rows`` handed in, ``granules``,
-    ``host_reads``): with GrC it ends at the read of the live count.
+    ``host_reads``, ``fallbacks``: the builds made again on the column
+    chain): with GrC it ends at the read of the live count.
     """
     dev = resolve_device(device)
     _check_source_args(x, d, source)
     rows = source.capacity if isinstance(source, Granularity) else (
         len(x) if source is None else None)
     with _counted_span("reduce.granulate", rows=rows) as sp:
-        if isinstance(source, Granularity):
-            g = source.to(dev)
-            return _shrink_capacity(g, sp) if grc_init else g
+        f0 = chain_fallbacks()
+        try:
+            if isinstance(source, Granularity):
+                g = source.to(dev)
+                return _shrink_capacity(g, sp) if grc_init else g
 
-        if source is not None:
-            n_dec = source.n_dec if n_dec is None else n_dec
-            v_max = source.v_max if v_max is None else v_max
-            if grc_init:
-                return _shrink_capacity(build_granularity_streaming(
-                    _iter_chunks(source, chunk_rows), n_dec=n_dec, v_max=v_max,
-                    exact=exact, device=dev), sp)
-            x, d = _materialize(source, chunk_rows)
+            if source is not None:
+                n_dec = source.n_dec if n_dec is None else n_dec
+                v_max = source.v_max if v_max is None else v_max
+                if grc_init:
+                    return _shrink_capacity(build_granularity_streaming(
+                        _iter_chunks(source, chunk_rows), n_dec=n_dec, v_max=v_max,
+                        exact=exact, device=dev), sp)
+                x, d = _materialize(source, chunk_rows)
 
-        x = torch.as_tensor(x, dtype=torch.int32).to(dev)
-        d = torch.as_tensor(d, dtype=torch.int32).to(dev)
-        if n_dec is None:
-            n_dec = host_int(d.max()) + 1
-        if v_max is None:
-            v_max = host_int(x.max()) + 1
-        if not grc_init:
-            return raw_granularity(x, d, n_dec=n_dec, v_max=v_max, device=dev)
-        return _shrink_capacity(
-            build_granularity(x, d, n_dec=n_dec, v_max=v_max, exact=exact), sp)
+            x = torch.as_tensor(x, dtype=torch.int32).to(dev)
+            d = torch.as_tensor(d, dtype=torch.int32).to(dev)
+            if n_dec is None:
+                n_dec = host_int(d.max()) + 1
+            if v_max is None:
+                v_max = host_int(x.max()) + 1
+            if not grc_init:
+                return raw_granularity(x, d, n_dec=n_dec, v_max=v_max, device=dev)
+            return _shrink_capacity(
+                build_granularity(x, d, n_dec=n_dec, v_max=v_max, exact=exact), sp)
+        finally:
+            sp.set(fallbacks=chain_fallbacks() - f0)
 
 
 def _check_codes(gran: Granularity) -> None:
