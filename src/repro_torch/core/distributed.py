@@ -73,23 +73,24 @@ from repro_torch import obs
 
 from . import measures
 from .engine import (
-    _Cfg,
+    _Bins,
     _MeshColl,
     _advance,
+    _mesh_thetas,
     make_engine_run_mesh,
-    merge_candidate_cont,
     run_engine,
 )
 from .granularity import Granularity, build_granularity, fold_chunk, next_pow2, with_capacity
 from .plan import (
-    _check_selector,
+    MESH_BACKENDS,
     _masked_w,
-    candidate_contingency,
-    contingency_from_ids,
+    check_backend,
+    check_engine,
+    check_selector,
     ladder_rungs,
     rung_for,
     subset_ids,
-    sweep_contingency,
+    theta_for_ids,
 )
 from .reduction import (
     ReductionResult,
@@ -120,11 +121,12 @@ def _eval_step(mesh, delta: str, n_bins: int, m: int, v_max: int, collective: st
     Returns ``step(cand, r_ids, x, d, w, valid, n) -> [a_pad]`` where
     ``cand`` is the whole padded candidate list (a multiple of the model
     shard count; model shard i evaluates slice i) and the result is every
-    shard's Θ gathered over 'model', the same on every rank.
-    ``backend="sweep_xla"`` (DESIGN.md §5.3) is the fused-pack formulation:
-    ``packed [A_loc, G_loc]`` is never staged.  ``n_bins`` may be any §5.3
-    ladder rung ≥ K·V.  ``selector`` picks the fused kernel's launch shape
-    on each rank's own shard shape; no collective depends on it.
+    shard's Θ gathered over 'model', the same on every rank.  The
+    ``all_reduce`` and ``reduce_scatter`` schedules are the device engine's
+    (``engine._mesh_thetas``, ``backend`` segment or sweep_xla); ``fused``
+    is this loop's own.  ``n_bins`` may be any §5.3 ladder rung ≥ K·V.
+    ``selector`` picks the fused kernel's launch shape on each rank's own
+    shard shape; no collective depends on it.
     """
     coll = _MeshColl(mesh)
     nm = mesh.n_model
@@ -148,14 +150,8 @@ def _eval_step(mesh, delta: str, n_bins: int, m: int, v_max: int, collective: st
                                   delta=delta, n_bins=n_bins, n_dec=m, selector=selector)
             th = measures.theta_scale(delta, coll.psum_data(raw), n)
         else:
-            if backend == "sweep_xla":
-                cont = sweep_contingency(x_cand, r_ids, d, w, valid, v_max=v_max,
-                                         n_bins=n_bins, m=m)
-            else:
-                packed = r_ids[None, :] * v_max + x_cand
-                cont = candidate_contingency(packed, d, w, valid, n_bins=n_bins, m=m)
-            # all_reduce / reduce_scatter schedules shared with the device engine
-            th = merge_candidate_cont(delta, cont, n, coll, collective)
+            th = _mesh_thetas(delta, x_cand, r_ids, d, w, valid, n, coll, collective,
+                              n_bins=n_bins, m=m, v_max=v_max, backend=backend)
         return coll.gather_model(th, len(cand))
 
     return step
@@ -170,13 +166,10 @@ def _advance_step(mesh, delta: str, n_bins: int, m: int, v_max: int):
     Returns ``step(a_col, r_ids, d, w, valid, n) -> (new_ids, k_new, theta)``.
     """
     coll = _MeshColl(mesh)
-    # only delta/m/v_max and the bin bound matter to _advance; n_bins here is
-    # the caller's (possibly bins_for-laddered) bound, always a v_max multiple
-    cfg = _Cfg(delta, "incremental", "segment", 0, n_bins // v_max, m, v_max,
-               0.0, 0.0, False, 0, 1)
+    bins = _Bins(n_bins, v_max, m)
 
     def step(a_col, r_ids, d, w, valid, n):
-        new_ids, k_new, theta, _g_pure = _advance(cfg, coll, r_ids, a_col, d, w, valid, n)
+        new_ids, k_new, theta, _g_pure = _advance(bins, coll, r_ids, a_col, d, w, valid, n, delta)
         return new_ids, k_new, theta
 
     return step
@@ -414,14 +407,9 @@ def plar_reduce_distributed(
         raise ValueError(
             f"unknown collective: {collective!r} "
             "(one of: all_reduce, reduce_scatter, fused)")
-    if backend not in ("segment", "sweep_xla"):
-        raise ValueError(
-            f"unknown mesh Θ backend: {backend!r} (one of: segment, "
-            "sweep_xla — the Pallas/interpret backends are single-process)")
-    if engine not in ("auto", "host", "device"):
-        raise ValueError(
-            f"unknown engine: {engine!r} (one of: auto, host, device)")
-    _check_selector(selector)
+    check_backend(backend, MESH_BACKENDS, "mesh ")
+    check_engine(engine)
+    check_selector(selector, "selector")
     if engine == "device" and collective == "fused":
         raise ValueError(
             "engine='device' cannot run the 'fused' collective: its class "
@@ -490,9 +478,7 @@ def plar_reduce_distributed(
         n_attrs=A, n_dec=n_dec, v_max=v_max,
     )
     ids_c, _ = subset_ids(gran_h, list(range(A)), exact=True)
-    cont_c = contingency_from_ids(ids_c, gran_h.d, gran_h.w, gran_h.valid,
-                                  n_bins=cap, m=n_dec)
-    theta_full = float(measures.evaluate(delta, cont_c, n))
+    theta_full = float(theta_for_ids(delta, ids_c, gran_h, n_bins=cap))
 
     core: List[int] = []
     n_evals = 0
@@ -500,7 +486,7 @@ def plar_reduce_distributed(
         inner = _core_inner_thetas(gran_h, delta, exact=True)
         core = [int(a) for a in range(A) if inner[a] - theta_full > eps + tie_tol]
         n_evals += A
-    del gran_h, ids_c, cont_c
+    del gran_h, ids_c
 
     engine = _resolve_engine(engine, collective, mesh, -(-A // nm), cap, v_max, n_dec)
     if engine == "device":
@@ -513,105 +499,91 @@ def plar_reduce_distributed(
         runner = make_engine_run_mesh(
             mesh, collective, delta, backend, A, cap, n_dec, v_max, float(tol),
             float(tie_tol), max_sel, bool(ladder), str(selector))
-        reduct, theta_hist, iterations, ev, per_iter = run_engine(
+        reduct, theta_hist, iterations, ev, per_iter_s = run_engine(
             runner, cap_loc, A, gvalid, gx, gd, gw, n_rows, theta_full, core)
-        return ReductionResult(
-            reduct=reduct,
-            core=core,
-            theta_full=theta_full,
-            theta_history=theta_hist,
-            iterations=iterations,
-            n_evaluations=n_evals + ev,
-            elapsed_s=time.perf_counter() - t0,
-            per_iteration_s=per_iter,
-        )
+        n_evals += ev
+    else:
+        # --- distributed greedy loop state (engine == "host") ---
+        r_ids = torch.zeros((cap_loc,), dtype=torch.int32, device=dev)
+        k = 1
+        reduct: List[int] = []
+        theta_hist: List[float] = []
+        per_iter_s: List[float] = []
 
-    # --- distributed greedy loop state (engine == "host") ---
-    r_ids = torch.zeros((cap_loc,), dtype=torch.int32, device=dev)
-    k = 1
-    reduct: List[int] = []
-    theta_hist: List[float] = []
-    per_iter_s: List[float] = []
+        # Same (cap, m)-only rung set as the single-process drivers — the mesh
+        # host loop lands on the identical rung set (§5.3 byte parity).
+        rungs = ladder_rungs(cap * v_max, selector=selector, g=cap, m=n_dec)
 
-    # Same (cap, m)-only rung set as the single-process drivers — the mesh
-    # host loop lands on the identical rung set (§5.3 byte parity).
-    rungs = ladder_rungs(cap * v_max, selector=selector, g=cap, m=n_dec)
+        def adv_bins_for(k_):
+            # The advance bound is ladder-independent (the §5.3 ladder shrinks
+            # only the candidate evaluation), so theta histories are identical
+            # with the ladder on or off.
+            return next_pow2(max(k_, 1)) * v_max
 
-    def adv_bins_for(k_):
-        # The advance bound is ladder-independent (the §5.3 ladder shrinks
-        # only the candidate evaluation), so theta histories are identical
-        # with the ladder on or off.
-        return next_pow2(max(k_, 1)) * v_max
+        def bins_for(k_):
+            # Candidate-eval bound.  Ladder on: snap to the §5.3 rungs — every
+            # rung is divisible by the (pow2) data-shard count, so
+            # reduce_scatter keeps tiling at every K.  Ladder off: the legacy
+            # pow2(k)·V bound.
+            if ladder:
+                return rung_for(k_, v_max, rungs)
+            return adv_bins_for(k_)
 
-    def bins_for(k_):
-        # Candidate-eval bound.  Ladder on: snap to the §5.3 rungs — every
-        # rung is divisible by the (pow2) data-shard count, so
-        # reduce_scatter keeps tiling at every K.  Ladder off: the legacy
-        # pow2(k)·V bound.
-        if ladder:
-            return rung_for(k_, v_max, rungs)
-        return adv_bins_for(k_)
-
-    for a in core:
-        adv = _advance_step(mesh, delta, adv_bins_for(k), n_dec, v_max)
-        r_ids, k_new, theta_r = adv(gx[:, a], r_ids, gd, gw, gvalid, n)
-        k = int(k_new)
-        reduct.append(a)
-        theta_hist.append(float(theta_r))
-
-    theta_r = theta_hist[-1] if theta_hist else float("inf")
-    remaining = [a for a in range(A) if a not in reduct]
-    iterations = 0
-    # f32-mirrored stop threshold: same iteration count as the device cond
-    stop_thresh = measures.f32_threshold(theta_full, tol)
-    # The loop's collective bytes (every iteration's merge, regrouping and
-    # advance; not the one-time gathers of the core and Θ(D|C) above).
-    nbytes = _MeshColl.bytes_counter()
-    bytes_before = nbytes.value
-    with obs.span("mesh.loop", collective=collective, n_attrs=A, cap=cap) as sp:
-        while remaining and theta_r > stop_thresh:
-            if max_features is not None and len(reduct) >= max_features:
-                break
-            it0 = time.perf_counter()
-            n_bins = bins_for(k)
-            # candidate axis padded to the model-shard multiple (the MP level)
-            a_pad = -(-len(remaining) // nm) * nm
-            cand = np.full((a_pad,), remaining[-1], np.int64)
-            cand[: len(remaining)] = remaining
-
-            iter_collective = collective
-            if collective == "fused":
-                regrouped = _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh)
-                if regrouped is None:
-                    # Classes too large to pack (early iterations) — K is small
-                    # then, so the all_reduce payload O(nc·K·m) is still cheap.
-                    iter_collective = "all_reduce"
-                    obs.counter("plar_mesh_fused_fallbacks_total",
-                                "fused-schedule iterations run as all_reduce").inc()
-                else:
-                    gx, gd, gw, gvalid, r_ids = regrouped
-                    obs.counter("plar_mesh_fused_iterations_total",
-                                "iterations of the fused schedule").inc()
-
-            ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective, backend=backend,
-                            selector=selector)
-            thetas = ev(cand, r_ids, gx, gd, gw, gvalid, n).cpu().numpy().astype(np.float64)
-            thetas = thetas[: len(remaining)]
-            n_evals += len(remaining)
-
-            best = measures.argmin_with_ties(thetas, tie_tol)
-            a_opt = remaining[best]
-
+        def fold(a):
+            nonlocal r_ids, k
             adv = _advance_step(mesh, delta, adv_bins_for(k), n_dec, v_max)
-            r_ids, k_new, theta_new = adv(gx[:, a_opt], r_ids, gd, gw, gvalid, n)
+            r_ids, k_new, theta = adv(gx[:, a], r_ids, gd, gw, gvalid, n)
             k = int(k_new)
-            theta_r = float(theta_new)
-            reduct.append(a_opt)
-            remaining.remove(a_opt)
-            theta_hist.append(theta_r)
-            iterations += 1
-            per_iter_s.append(time.perf_counter() - it0)
-        sp.set(iterations=iterations, collective_bytes=nbytes.value - bytes_before)
+            reduct.append(a)
+            theta_hist.append(float(theta))
+            return theta_hist[-1]
+
+        for a in core:
+            fold(a)
+        theta_r = theta_hist[-1] if theta_hist else float("inf")
+        remaining = [a for a in range(A) if a not in reduct]
+        iterations = 0
+        # f32-mirrored stop threshold: same iteration count as the device cond
+        stop_thresh = measures.f32_threshold(theta_full, tol)
+        # The loop's collective bytes (every iteration's merge, regrouping and
+        # advance; not the one-time gathers of the core and Θ(D|C) above).
+        nbytes = _MeshColl.bytes_counter()
+        bytes_before = nbytes.value
+        with obs.span("mesh.loop", collective=collective, n_attrs=A, cap=cap) as sp:
+            while remaining and theta_r > stop_thresh:
+                if max_features is not None and len(reduct) >= max_features:
+                    break
+                it0 = time.perf_counter()
+                n_bins = bins_for(k)
+                # candidate axis padded to the model-shard multiple (the MP level)
+                a_pad = -(-len(remaining) // nm) * nm
+                cand = np.full((a_pad,), remaining[-1], np.int64)
+                cand[: len(remaining)] = remaining
+
+                iter_collective = collective
+                if collective == "fused":
+                    regrouped = _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh)
+                    if regrouped is None:
+                        # Classes too large to pack (early iterations) — K is small
+                        # then, so the all_reduce payload O(nc·K·m) is still cheap.
+                        iter_collective = "all_reduce"
+                        obs.counter("plar_mesh_fused_fallbacks_total",
+                                    "fused-schedule iterations run as all_reduce").inc()
+                    else:
+                        gx, gd, gw, gvalid, r_ids = regrouped
+                        obs.counter("plar_mesh_fused_iterations_total",
+                                    "iterations of the fused schedule").inc()
+
+                ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective, backend=backend,
+                                selector=selector)
+                thetas = ev(cand, r_ids, gx, gd, gw, gvalid, n).cpu().numpy().astype(np.float64)
+                thetas = thetas[: len(remaining)]
+                n_evals += len(remaining)
+
+                theta_r = fold(remaining.pop(measures.argmin_with_ties(thetas, tie_tol)))
+                iterations += 1
+                per_iter_s.append(time.perf_counter() - it0)
+            sp.set(iterations=iterations, collective_bytes=nbytes.value - bytes_before)
 
     return ReductionResult(
         reduct=reduct,

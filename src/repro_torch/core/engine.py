@@ -25,10 +25,15 @@ iteration from Python.  This module keeps the whole reduction on the device:
 * :func:`init_state_from_reduct` / :func:`engine_resume` — the warm-start
   seam of the online service: seeding folds a prefix with the greedy phase
   disabled (``theta_full = +inf``), resuming continues greedy from there.
-* the stacked ensemble runner — a grid of configs (measure, tolerances,
-  feature cap, shrink, forced prefix, bagged weights) over one granularity
-  in one loop; each config freezes once its own condition is false, so its
-  trajectory is its solo run's.
+* one runner (:class:`_Runner`, one cached factory) — a grid of configs
+  (measure, tolerances, feature cap, shrink, forced prefix, bagged weights)
+  over one granularity in one gated body; each config freezes once its own
+  condition is false, so its trajectory is its solo run's.  A solo run is a
+  grid of one config, the mesh's a grid of one over the mesh adapter.
+
+Every candidate chunk is evaluated by one function, :func:`_eval_chunk`
+(the host loop's too), and on a mesh by :func:`_mesh_thetas` (the mesh host
+loop's too): what each backend takes is read from ``plan.BACKENDS``.
 
 ``engine="auto"`` runs the plain backends (:data:`DEVICE_BACKENDS`) here, as
 the JAX engine runs only its XLA ones.  Asked for by name
@@ -57,7 +62,7 @@ import dataclasses
 import gc
 import time
 from functools import lru_cache, partial
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,12 +80,15 @@ from .granularity import (
     presence_bitmap,
 )
 from .plan import (
-    SWEEP_BACKENDS,
+    BACKENDS,
+    DEVICE_BACKENDS,
+    ENSEMBLE_BACKENDS,
+    KERNEL_BACKENDS,
     candidate_contingency,
     candidate_theta,
+    check_stacked,
     contingency_from_ids,
     ids_by_sort,
-    ladder_rungs,
     sweep_contingency,
 )
 
@@ -91,6 +99,7 @@ __all__ = [
     "engine_resume",
     "make_engine_step",
     "make_engine_run",
+    "runner_for",
     "run_engine",
     "unpack_result",
     "DEVICE_BACKENDS",
@@ -109,19 +118,8 @@ __all__ = [
     "merge_candidate_cont",
 ]
 
-# Θ backends engine="auto" runs here: the plain ones, which the JAX package
-# computes in XLA.  The kernel backends run here only when asked for by name.
-DEVICE_BACKENDS = ("segment", "onehot", "fused_xla", "sweep_xla")
-# the CUDA kernel backends, and the kernel each launches
-KERNEL_BACKENDS = {"pallas": "contingency", "fused": "fused", "sweep": "sweep"}
-
 # Measures of the stacked engine; each config's measure is static.
 ENSEMBLE_DELTAS = tuple(measures.RAW_ROWS)  # ("PR", "SCE", "LCE", "CCE")
-
-# Θ backends of the stacked engine.  ``fused_xla`` is excluded: its measure
-# is fused into the contingency, so it does not split into a contingency and
-# a per-config measure epilogue.
-ENSEMBLE_BACKENDS = ("segment", "onehot", "sweep_xla")
 
 # Bodies replayed between two reads of the ``done`` flag.  The read of a
 # group's flag waits only for the group before it, so the card always has a
@@ -133,12 +131,24 @@ ENSEMBLE_BACKENDS = ("segment", "onehot", "sweep_xla")
 POLL_PERIOD = 1
 
 _MASK32 = 0xFFFFFFFF
-_FIELDS = ("r_ids", "h1", "h2", "active", "remaining", "theta_history", "order",
-           "k", "theta_r", "pr_correction", "n_selected")
+
+
+class _Tensors:
+    """A dataclass of tensors, read in field order."""
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def clone(self):
+        return type(self)(*(t.clone() for t in self.tensors()))
+
+    def copy_(self, other) -> None:
+        for dst, src in zip(self.tensors(), other.tensors()):
+            dst.copy_(src)
 
 
 @dataclasses.dataclass
-class SelectionState:
+class SelectionState(_Tensors):
     """Everything the greedy loop mutates, as tensors on one device.
 
     Shapes (``cap`` = granule capacity, ``A`` = number of attributes); the
@@ -168,16 +178,6 @@ class SelectionState:
     theta_r: torch.Tensor
     pr_correction: torch.Tensor
     n_selected: torch.Tensor
-
-    def tensors(self) -> Tuple[torch.Tensor, ...]:
-        return tuple(getattr(self, f) for f in _FIELDS)
-
-    def clone(self) -> "SelectionState":
-        return SelectionState(*(t.clone() for t in self.tensors()))
-
-    def copy_(self, other: "SelectionState") -> None:
-        for dst, src in zip(self.tensors(), other.tensors()):
-            dst.copy_(src)
 
     def where(self, keep_new: torch.Tensor, new: "SelectionState") -> "SelectionState":
         """Field by field ``new`` where ``keep_new`` (``[]``, or ``[C]``
@@ -223,23 +223,37 @@ def init_state(cap: int, n_attrs: int, valid, device=None) -> SelectionState:
 
 @dataclasses.dataclass(frozen=True)
 class _Cfg:
-    """Static configuration of one runner (hashable: the factory key)."""
+    """Static configuration of one runner (hashable: the factory key): the
+    shared evaluation strategy, the shapes and each config's measure.  A
+    solo runner (one config) also holds its knobs; a stacked one takes them
+    on every call (:class:`EnsembleOperands`)."""
 
-    delta: str
+    deltas: Tuple[str, ...]
     mode: str            # "incremental" | "spark"
-    backend: str         # DEVICE_BACKENDS
+    backend: str         # plan.BACKENDS
     n_attrs: int
     cap: int
     m: int
     v_max: int
-    tol: float
-    tie_tol: float
-    shrink: bool
-    max_sel: int         # max_features, or n_attrs when unbounded
     mp_chunk: int        # candidates evaluated per inner step (memory bound)
-    ladder: bool = False  # accepted; every body evaluates at n_bins (see module doc)
-    selector: str = "heuristic"
-    tiles: Tuple[int, ...] = ()  # the body's kernel launch shape (KERNEL_BACKENDS), else ()
+    tiles: Tuple[int, ...] = ()   # the body's kernel launch shape (KERNEL_BACKENDS), else ()
+    tol: Optional[float] = None   # the solo knobs; None in a stacked runner
+    tie_tol: Optional[float] = None
+    shrink: Optional[bool] = None
+    max_sel: Optional[int] = None  # max_features, or n_attrs when unbounded
+
+    @classmethod
+    def solo(cls, delta, mode, backend, n_attrs, cap, m, v_max, tol, tie_tol, shrink, max_sel,
+             mp_chunk) -> "_Cfg":
+        # numpy scalar arguments (np.int32 dims of a Granularity, np.bool_
+        # flags) key as the Python values do
+        return cls((str(delta),), str(mode), str(backend), int(n_attrs), int(cap), int(m),
+                   int(v_max), int(mp_chunk), (), float(tol), float(tie_tol), bool(shrink),
+                   int(max_sel))
+
+    @property
+    def n_cfgs(self) -> int:
+        return len(self.deltas)
 
     @property
     def n_bins(self) -> int:
@@ -248,10 +262,13 @@ class _Cfg:
         # are all-zero and contribute exactly 0 to every measure.
         return self.cap * self.v_max
 
-    @property
-    def rungs(self):
-        # The bin buckets of the host loop's ladder; the top rung is n_bins.
-        return ladder_rungs(self.n_bins, selector=self.selector, g=self.cap, m=self.m)
+
+class _Bins(NamedTuple):
+    """A bin bound an advance packs into (the engine's is its config)."""
+
+    n_bins: int
+    v_max: int
+    m: int
 
 
 # ---------------------------------------------------------------------------
@@ -353,21 +370,19 @@ _LOCAL = _LocalColl()
 # ---------------------------------------------------------------------------
 
 
-def _advance(cfg, coll, r_ids, x_col, d, w, active, n, eval_theta=None):
+def _advance(at, coll, r_ids, x_col, d, w, active, n, delta: str):
     """Fold one attribute into the class ids: pack → compact → Θ → purity.
 
-    The host loop folds with this too, so both engines record Θ(D|R) from
-    the same ops on the same shapes (``cfg.n_bins`` on every path).
-    ``eval_theta(cont, n)`` overrides the measure (the ensemble passes each
-    config's); the default is ``cfg.delta``'s.
+    ``at`` is the bin bound (a :class:`_Cfg`, whose ``n_bins`` is ``cap·V``,
+    or :class:`_Bins`).  The host loops fold with this too, so every loop
+    records Θ(D|R) from the same ops on the same shapes.
     """
-    nb = cfg.n_bins
-    packed = r_ids * cfg.v_max + x_col
+    nb = at.n_bins
+    packed = r_ids * at.v_max + x_col
     presence = coll.psum_data(presence_bitmap(packed, active, nb))
     new_ids, k_new = ids_from_presence(presence, packed, active)
-    cont = coll.psum_data(contingency_from_ids(new_ids, d, w, active, n_bins=nb, m=cfg.m))
-    theta = (measures.evaluate(cfg.delta, cont, n) if eval_theta is None
-             else eval_theta(cont, n))
+    cont = coll.psum_data(contingency_from_ids(new_ids, d, w, active, n_bins=nb, m=at.m))
+    theta = measures.evaluate(delta, cont, n)
     # purity per class → per granule (for FSPA-style shrinking)
     e = cont.sum(dim=-1)
     pure_row = (cont.amax(dim=-1) == e) & (e > 0)
@@ -392,15 +407,57 @@ def _spark_thetas(delta, h1, h2, cols, x, d, w, active, n, *, n_bins, m):
 
 
 @dataclasses.dataclass
-class _Operands:
-    """What a body reads besides the state.
+class EnsembleOperands(_Tensors):
+    """Per-config parameters of the stacked engine, leading axis ``[C]``.
 
-    Shared: ``x [cap, A]``, its transpose ``x_t [A, cap]`` (hoisted out of
-    the loop), ``d``, ``cols = arange(A)`` and ``grid``, the candidate
-    chunks ``[n_chunks, nc]``.  Per config (a leading ``[C]`` axis in the
-    stacked engine): ``w``, ``n``, ``theta_full``, ``core_attrs``,
-    ``core_count`` and the knobs ``tol``, ``tie_tol``, ``max_sel``,
-    ``shrink`` — tensors also in the solo engine, so one body serves both.
+      tol         [C]           f32   stopping tolerance
+      tie_tol     [C]           f32   argmin tie band
+      max_sel     [C]           i32   max_features (n_attrs when unbounded)
+      shrink      [C]           bool  FSPA universe shrinking
+      theta_full  [C]           f32   Θ(D|C) stopping target (per-config w)
+      n           [C]           i32   total row weight |U|
+      w           [C, cap]      i32   granule weights (bagged resample seam)
+      core_attrs  [C, max(A,1)] i32   forced-selection prefix, padded
+      core_count  [C]           i32   number of forced selections
+
+    Each config's measure is static: it is part of the runner's key
+    (:func:`make_ensemble_run`'s ``deltas``), and each config's slice of the
+    body evaluates exactly that measure.
+    """
+
+    tol: torch.Tensor
+    tie_tol: torch.Tensor
+    max_sel: torch.Tensor
+    shrink: torch.Tensor
+    theta_full: torch.Tensor
+    n: torch.Tensor
+    w: torch.Tensor
+    core_attrs: torch.Tensor
+    core_count: torch.Tensor
+
+    @property
+    def n_cfgs(self) -> int:
+        return self.tol.shape[0]
+
+    def per_config(self, fn) -> dict:
+        """``fn`` of each per-config field, by name."""
+        return {f.name: fn(f.name, getattr(self, f.name))
+                for f in dataclasses.fields(EnsembleOperands)}
+
+
+# the dtype of each EnsembleOperands field
+_DTYPES = dict(tol=torch.float32, tie_tol=torch.float32, max_sel=torch.int32, shrink=torch.bool,
+               theta_full=torch.float32, n=torch.int32, w=torch.int32, core_attrs=torch.int32,
+               core_count=torch.int32)
+
+
+@dataclasses.dataclass
+class _Operands(EnsembleOperands):
+    """What a body reads besides the state: each config's operands (a
+    leading ``[C]`` axis, of one in a solo run) and the shared ``x [cap,
+    A]``, its candidate slab ``x_t [A, cap]`` (hoisted out of the loop),
+    ``d``, ``cols = arange(A)`` and ``grid``, the candidate chunks
+    ``[n_chunks, nc]``.
     """
 
     x: torch.Tensor
@@ -408,25 +465,10 @@ class _Operands:
     d: torch.Tensor
     cols: torch.Tensor
     grid: torch.Tensor
-    w: torch.Tensor
-    n: torch.Tensor
-    theta_full: torch.Tensor
-    core_attrs: torch.Tensor
-    core_count: torch.Tensor
-    tol: torch.Tensor
-    tie_tol: torch.Tensor
-    max_sel: torch.Tensor
-    shrink: torch.Tensor
-
-    _PER_CONFIG = ("w", "n", "theta_full", "core_attrs", "core_count", "tol",
-                   "tie_tol", "max_sel", "shrink")
-
-    def tensors(self) -> Tuple[torch.Tensor, ...]:
-        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
 
     def config(self, c: int) -> "_Operands":
         """Config ``c``'s operands of a stacked set (views)."""
-        return dataclasses.replace(self, **{f: getattr(self, f)[c] for f in self._PER_CONFIG})
+        return dataclasses.replace(self, **self.per_config(lambda _f, t: t[c]))
 
 
 def _chunk_grid(n_attrs: int, mp_chunk: int) -> torch.Tensor:
@@ -442,22 +484,32 @@ def _chunk_grid(n_attrs: int, mp_chunk: int) -> torch.Tensor:
     return (torch.arange(a_pad, dtype=torch.int64) % max(n_attrs, 1)).reshape(-1, nc)
 
 
-def _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, tol, tie_tol,
-              max_sel, shrink, device) -> _Operands:
-    """Host values and tensors → an :class:`_Operands` on ``device``."""
+def _operands(cfg, x, d, device, slab, ops: EnsembleOperands) -> _Operands:
+    """Host values and tensors → an :class:`_Operands` on ``device``; the
+    candidate slab ``x_t`` is ``x``'s transpose, or ``slab(x)``."""
     def on(v, dtype):
         return torch.as_tensor(v, dtype=dtype).to(device)
 
     x = on(x, torch.int32)
-    return _Operands(
-        x=x, x_t=x.t().contiguous(), d=on(d, torch.int32),
-        cols=torch.arange(cfg.n_attrs, device=device),
-        grid=_chunk_grid(cfg.n_attrs, cfg.mp_chunk).to(device),
-        w=on(w, torch.int32), n=on(n, torch.int32),
-        theta_full=on(theta_full, torch.float32), core_attrs=on(core_attrs, torch.int32),
-        core_count=on(core_count, torch.int32), tol=on(tol, torch.float32),
-        tie_tol=on(tie_tol, torch.float32), max_sel=on(max_sel, torch.int32),
-        shrink=on(shrink, torch.bool))
+    return _Operands(x=x, x_t=x.t().contiguous() if slab is None else slab(x),
+                     d=on(d, torch.int32), cols=torch.arange(cfg.n_attrs, device=device),
+                     grid=_chunk_grid(cfg.n_attrs, cfg.mp_chunk).to(device),
+                     **ops.per_config(lambda f, v: on(v, _DTYPES[f])))
+
+
+def _eval_chunk(delta: str, x_cand, r_ids, d, w, active, n, *, n_bins: int, m: int, v_max: int,
+                backend: str, selector=None, tiles=None) -> torch.Tensor:
+    """Θ(D|R∪{a}) of a candidate chunk, ``[nc]``: ``x_cand [nc, G]`` holds
+    each candidate's column, ``r_ids`` R's class ids.  A slab backend takes
+    them as they are, the others the packed ids ``r·V + v``.  The host loop
+    and the engine's body evaluate every chunk here."""
+    if BACKENDS[backend].slab:
+        return candidate_theta(delta, None, d, w, active, n, n_bins=n_bins, m=m, backend=backend,
+                               x_t=x_cand, r_ids=r_ids, v_max=v_max, selector=selector,
+                               tiles=tiles)
+    packed = (r_ids[None, :] * v_max + x_cand).contiguous()
+    return candidate_theta(delta, packed, d, w, active, n, n_bins=n_bins, m=m, backend=backend,
+                           selector=selector, tiles=tiles)
 
 
 def _eval_local(cfg, delta: str, st: SelectionState, op: _Operands) -> torch.Tensor:
@@ -468,19 +520,10 @@ def _eval_local(cfg, delta: str, st: SelectionState, op: _Operands) -> torch.Ten
         # (sort-ranked ids are bounded by the live-granule count, not K·V)
         return _spark_thetas(delta, st.h1, st.h2, range(cfg.n_attrs), op.x, op.d, op.w,
                              st.active, op.n, n_bins=cfg.cap, m=cfg.m) + st.pr_correction
-    chunks = []
-    tiles = cfg.tiles or None
-    for cc in op.grid:
-        x_cand = op.x_t.index_select(0, cc)                    # [nc, cap]
-        if cfg.backend in SWEEP_BACKENDS:
-            vals = candidate_theta(delta, None, op.d, op.w, st.active, op.n, n_bins=cfg.n_bins,
-                                   m=cfg.m, backend=cfg.backend, x_t=x_cand, r_ids=st.r_ids,
-                                   v_max=cfg.v_max, tiles=tiles)
-        else:
-            packed = st.r_ids[None, :] * cfg.v_max + x_cand
-            vals = candidate_theta(delta, packed, op.d, op.w, st.active, op.n,
-                                   n_bins=cfg.n_bins, m=cfg.m, backend=cfg.backend, tiles=tiles)
-        chunks.append(vals)
+    chunks = [_eval_chunk(delta, op.x_t.index_select(0, cc), st.r_ids, op.d, op.w, st.active,
+                          op.n, n_bins=cfg.n_bins, m=cfg.m, v_max=cfg.v_max,
+                          backend=cfg.backend, tiles=cfg.tiles or None)
+              for cc in op.grid]
     return torch.cat(chunks)[: cfg.n_attrs] + st.pr_correction
 
 
@@ -500,22 +543,21 @@ def _cond(st: SelectionState, op: _Operands, n_attrs: int) -> torch.Tensor:
     return in_core | greedy
 
 
-def _select(cfg, delta: str, st: SelectionState, op: _Operands, coll=_LOCAL,
-            eval_thetas=_eval_local) -> SelectionState:
-    """One greedy iteration, ungated: pick (forced or masked argmin-with-ties),
-    advance, shrink, record.  ``coll`` and ``eval_thetas(cfg, delta, st, op)``
-    are the mesh driver's seam (default: one process)."""
+def _select(cfg, coll, evaluate, delta: str, st: SelectionState,
+            op: _Operands) -> SelectionState:
+    """One greedy iteration of one config, ungated: pick (forced or masked
+    argmin-with-ties), advance, shrink, record.  ``coll`` and
+    ``evaluate(cfg, delta, st, op)`` are the mesh driver's seam."""
     forced = st.n_selected < op.core_count
     core_pick = _at(op.core_attrs, torch.clamp(st.n_selected, max=cfg.n_attrs - 1))
-    thetas = torch.where(st.remaining, eval_thetas(cfg, delta, st, op), float("inf"))
+    thetas = torch.where(st.remaining, evaluate(cfg, delta, st, op), float("inf"))
     # lowest index within tie_tol of the minimum — the device twin of
     # measures.argmin_with_ties (argmax returns the first maximal index)
     in_band = (thetas <= thetas.min() + op.tie_tol).to(torch.uint8)
     best = torch.where(forced, core_pick, torch.argmax(in_band).to(torch.int32))
 
     new_ids, k_new, theta, g_pure = _advance(
-        cfg, coll, st.r_ids, _at(op.x, best, dim=1), op.d, op.w, st.active, op.n,
-        eval_theta=partial(measures.evaluate, delta))
+        cfg, coll, st.r_ids, _at(op.x, best, dim=1), op.d, op.w, st.active, op.n, delta)
     theta_rec = theta + st.pr_correction          # correction *before* this fold
 
     if cfg.mode == "spark":
@@ -549,27 +591,31 @@ def _select(cfg, delta: str, st: SelectionState, op: _Operands, coll=_LOCAL,
     )
 
 
-def _solo_body(cfg: _Cfg, op: _Operands, st: SelectionState):
-    """One gated body: ``(state after it, done)``; a no-op once done."""
-    live = _cond(st, op, cfg.n_attrs)
-    out = st.where(live, _select(cfg, cfg.delta, st, op))
-    return out, ~_cond(out, op, cfg.n_attrs)
+def _body(cfg: _Cfg, coll, evaluate, op: _Operands, st: SelectionState):
+    """One gated body of every config: ``(state after it, done)``.  Each
+    config freezes once its own condition is false (conditions are
+    monotone, so a frozen config stays frozen and its trajectory is its
+    solo one); a no-op once all are.  Every branch reads replicated values
+    only, so on a mesh all ranks run the same bodies."""
+    go = _cond(st, op, cfg.n_attrs)                            # [C]
+    new = SelectionState.stack([_select(cfg, coll, evaluate, delta, st.config(c), op.config(c))
+                                for c, delta in enumerate(cfg.deltas)])
+    out = st.where(go, new)
+    return out, ~_cond(out, op, cfg.n_attrs).any()
 
 
 # ---------------------------------------------------------------------------
-# the mesh body: the same gated iteration over a collective adapter
+# mesh evaluation: the same body over a collective adapter
 # ---------------------------------------------------------------------------
 
 
 def merge_candidate_cont(delta, cont, n, coll, collective: str):
     """Per-shard candidate contingency ``[nc, nb, m]`` → merged thetas [nc].
 
-    The §3.2 collective schedules, shared by both mesh step implementations
-    (this engine's :func:`_eval_mesh` and the host loop's
-    ``distributed._eval_step``): ``all_reduce`` sums the full contingency
-    over the data shards (paper-faithful DP); ``reduce_scatter`` scatters
-    contingency *rows* over the data shards, reduces θ locally
-    (row-separability, Eq. 8) and sums the scalars.
+    The §3.2 collective schedules of :func:`_mesh_thetas`: ``all_reduce``
+    sums the full contingency over the data shards (paper-faithful DP);
+    ``reduce_scatter`` scatters contingency *rows* over the data shards,
+    reduces θ locally (row-separability, Eq. 8) and sums the scalars.
     """
     nb = cont.shape[1]
     if collective == "reduce_scatter" and coll.n_data > 1 and nb % coll.n_data == 0:
@@ -578,46 +624,43 @@ def merge_candidate_cont(delta, cont, n, coll, collective: str):
     return measures.evaluate(delta, coll.psum_data(cont), n)
 
 
-def _mesh_cand_slab(cfg, coll, n_model: int, x: torch.Tensor) -> torch.Tensor:
+def _mesh_thetas(delta: str, x_cand, r_ids, d, w, active, n, coll, collective: str, *,
+                 n_bins: int, m: int, v_max: int, backend: str) -> torch.Tensor:
+    """This shard's candidate slab ``x_cand [nc, G_loc]`` → Θ merged over
+    the data shards, ``[nc]``: the mesh twin of :func:`_eval_chunk`, for
+    the engine's body and the mesh host loop's step alike.  A slab backend
+    packs inside the contingency (``packed [nc, G_loc]`` is never staged)."""
+    if BACKENDS[backend].slab:
+        cont = sweep_contingency(x_cand, r_ids, d, w, active, v_max=v_max, n_bins=n_bins, m=m)
+    else:
+        cont = candidate_contingency(r_ids[None, :] * v_max + x_cand, d, w, active,
+                                     n_bins=n_bins, m=m)
+    return merge_candidate_cont(delta, cont, n, coll, collective)
+
+
+def _mesh_cand_slab(cfg, coll, x: torch.Tensor) -> torch.Tensor:
     """This model shard's pre-transposed candidate slab ``[A_loc, G_loc]``:
     candidates ``[i·A_loc, (i+1)·A_loc)`` of model shard i, the padding
     clamped to ``n_attrs − 1``.  Built once a run, outside the loop."""
-    a_loc = -(-cfg.n_attrs // n_model)
+    a_loc = -(-cfg.n_attrs // coll.n_model)
     midx = coll.model_index if coll.has_model else 0
     cand = torch.clamp(midx * a_loc + torch.arange(a_loc, device=x.device), max=cfg.n_attrs - 1)
     return x.index_select(1, cand).t().contiguous().to(torch.int32)
 
 
-def _eval_mesh(cfg, coll, collective: str, delta: str, st: SelectionState,
+def _eval_mesh(coll, collective: str, cfg, delta: str, st: SelectionState,
                op: _Operands) -> torch.Tensor:
     """Mesh candidate evaluation: this shard's slab ``op.x_t`` (see
-    :func:`_mesh_cand_slab`) → contingencies merged over the data shards →
-    Θ gathered over 'model', ``[A]``.
+    :func:`_mesh_cand_slab`) → Θ gathered over 'model', ``[A]``.
 
     Every body evaluates at the top rung ``cfg.n_bins = cap·V`` (``cap`` the
     mesh's whole capacity, ``nd·cap_per_shard``, so ``reduce_scatter``
     tiles), as the solo engine does (module doc).
     """
-    if cfg.backend == "sweep_xla":
-        # fused-pack contingency: packed [A_loc, G_loc] is never staged
-        cont = sweep_contingency(op.x_t, st.r_ids, op.d, op.w, st.active, v_max=cfg.v_max,
-                                 n_bins=cfg.n_bins, m=cfg.m)
-    else:
-        packed = st.r_ids[None, :] * cfg.v_max + op.x_t
-        cont = candidate_contingency(packed, op.d, op.w, st.active, n_bins=cfg.n_bins, m=cfg.m)
-    th_loc = merge_candidate_cont(delta, cont, op.n, coll, collective)
+    th_loc = _mesh_thetas(delta, op.x_t, st.r_ids, op.d, op.w, st.active, op.n, coll,
+                          collective, n_bins=cfg.n_bins, m=cfg.m, v_max=cfg.v_max,
+                          backend=cfg.backend)
     return coll.gather_model(th_loc, cfg.n_attrs) + st.pr_correction
-
-
-def _mesh_body(cfg: _Cfg, coll, collective: str, op: _Operands, st: SelectionState):
-    """The solo body over a mesh adapter: ``(state after it, done)``.  Every
-    branch reads replicated values only, so all ranks run the same bodies."""
-    def eval_thetas(cfg_, delta, st_, op_):
-        return _eval_mesh(cfg_, coll, collective, delta, st_, op_)
-
-    live = _cond(st, op, cfg.n_attrs)
-    out = st.where(live, _select(cfg, cfg.delta, st, op, coll, eval_thetas))
-    return out, ~_cond(out, op, cfg.n_attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -645,10 +688,7 @@ def release_graphs() -> None:
     """Drop every cached runner, with its CUDA graph and buffers, and return
     the engine's graph memory to the card (the factories hold their runners
     for the life of the process)."""
-    _make_engine_run.cache_clear()
-    _make_engine_step.cache_clear()
-    _make_ensemble_run.cache_clear()
-    _make_engine_run_mesh.cache_clear()
+    _runner.cache_clear()
     _graph_pools.clear()
     gc.collect()
     if torch.cuda.is_available():
@@ -737,13 +777,12 @@ class _Loop:
         slot = self._slots.get(dev)
         if slot is None:
             slot = self._slots[dev] = {
-                "op": _Operands(*(t.clone() for t in op.tensors())), "st": st.clone(),
+                "op": op.clone(), "st": st.clone(),
                 "done": torch.zeros((), dtype=torch.bool, device=dev), "graph": None}
         else:
             # copied in before every call: a graph replays what its buffers
             # hold, never the values of its first call
-            for dst, src in zip(slot["op"].tensors(), op.tensors()):
-                dst.copy_(src)
+            slot["op"].copy_(op)
             slot["st"].copy_(st)
         slot["done"].zero_()
         if dev.type == "cuda":
@@ -776,109 +815,97 @@ def body_tiles(backend: str, delta: str, n_attrs: int, cap: int, m: int, v_max: 
                          delta=str(delta), selector=selector, device=device)
 
 
-def _cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol, tie_tol, shrink, max_sel,
-             mp_chunk, ladder, selector, tiles=(), device=None):
-    # defaulted, keyword and positional calls, and numpy scalar arguments
-    # (np.int32 dims of a Granularity, np.bool_ flags), key identically; the
-    # key holds the resolved tiles, so a body captured with other tiles is
-    # never replayed for these
-    if not tiles:
-        tiles = body_tiles(backend, delta, n_attrs, cap, m, v_max, mp_chunk, selector, device)
-    return (str(delta), str(mode), str(backend), int(n_attrs), int(cap), int(m), int(v_max),
-            float(tol), float(tie_tol), bool(shrink), int(max_sel), int(mp_chunk), bool(ladder),
-            str(selector), tuple(int(t) for t in tiles))
+class _Runner:
+    """The runner of one :class:`_Cfg`: the gated body over its configs,
+    looped by :class:`_Loop` (``loop``) or run once eagerly (``step``).
 
+    A solo config (one measure, its knobs in the config) is called as
+    ``run(st, x, d, w, n, theta_full, core_attrs, core_count) -> final
+    state`` on an unstacked state, a grid of one inside; a stacked one as
+    ``run(st_stack, x, d, ops) -> st_stack``, every state field with a
+    leading ``[C]`` and ``ops`` the :class:`EnsembleOperands`.  Over a mesh
+    (``mesh``, ``collective``) each rank passes its shard of ``x``/``d``/
+    ``w`` and of the state's granule fields, and the replicated rest.
+    """
 
-class _EngineStep:
-    """One greedy iteration, run eagerly (no graph) on the operands' device."""
-
-    def __init__(self, cfg: _Cfg):
+    def __init__(self, cfg: _Cfg, mesh=None, collective=None):
         self.cfg = cfg
+        if mesh is None:
+            coll, evaluate, self._slab = _LOCAL, _eval_local, None
+        else:
+            coll = _MeshColl(mesh)
+            evaluate = partial(_eval_mesh, coll, collective)
+            self._slab = partial(_mesh_cand_slab, cfg, coll)
+        body = partial(_body, cfg, coll, evaluate)
+        self.loop = _Loop(body)
+        # one greedy iteration (evaluate → argmin → advance), run eagerly
+        self.step = partial(self._call, lambda op, st, _max_bodies: body(op, st)[0])
 
-    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
-        cfg = self.cfg
-        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
-                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
-        return _solo_body(cfg, op, st)[0]
+    def __call__(self, st, x, d, *args) -> SelectionState:
+        return self._call(self.loop, st, x, d, *args)
 
-
-class _EngineRun:
-    """The full reduction as one loop: ``run(st, x, d, w, n, theta_full,
-    core_attrs, core_count) -> final state``."""
-
-    def __init__(self, cfg: _Cfg):
-        self.cfg = cfg
-        self.loop = _Loop(partial(_solo_body, cfg))
-
-    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
-        cfg = self.cfg
-        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
-                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
+    def _call(self, run, st, x, d, *args) -> SelectionState:
+        cfg, dev = self.cfg, st.r_ids.device
+        if cfg.tol is None:
+            (ops,) = args
+            if ops.n_cfgs != cfg.n_cfgs:
+                raise ValueError(f"{ops.n_cfgs} operand configs for a runner of {cfg.n_cfgs}")
+            op = _operands(cfg, x, d, dev, self._slab, ops)
+            bounds = (op.core_count.to(torch.int64) + op.max_sel.clamp(min=0)).tolist()
+            return run(op, st, min(cfg.n_attrs, max(bounds)))
+        w, n, theta_full, core_attrs, core_count = args
+        ops = EnsembleOperands(*(torch.as_tensor(v)[None] for v in (
+            cfg.tol, cfg.tie_tol, cfg.max_sel, cfg.shrink, theta_full, n, w, core_attrs,
+            core_count)))
+        op = _operands(cfg, x, d, dev, self._slab, ops)
         # no run needs more bodies: every live one selects an attribute
         max_bodies = min(cfg.n_attrs, int(core_count) + max(cfg.max_sel, 0))
-        return self.loop(op, st, max_bodies)
-
-
-def make_engine_step(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
-                     v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
-                     mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic",
-                     tiles: Sequence[int] = (), device=None):
-    """One greedy iteration (evaluate → argmin → advance), for inspection;
-    ``make_engine_run`` loops the same body."""
-    return _make_engine_step(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
-                                       tie_tol, shrink, max_sel, mp_chunk, ladder, selector,
-                                       tiles, device))
+        return run(op, SelectionState.stack([st]), max_bodies).config(0)
 
 
 @lru_cache(maxsize=None)
-def _make_engine_step(*key):
-    obs.counter("plar_engine_step_factories_total",
-                "distinct single-step engine configs traced").inc()
-    return _EngineStep(_Cfg(*key))
+def _runner(cfg: _Cfg, mesh=None, collective=None) -> _Runner:
+    """The one cached factory: one runner, so one CUDA graph capture, per
+    config (and mesh) and device, whatever the data (operands are copied
+    into the runner's buffers on every call)."""
+    if cfg.tol is None:
+        obs.counter("plar_engine_ensemble_factories_total",
+                    "distinct stacked-engine configs traced").inc()
+    else:
+        obs.counter("plar_engine_run_factories_total",
+                    "distinct while_loop engine configs traced").inc()
+    return _Runner(cfg, mesh, collective)
+
+
+def runner_for(cfg: _Cfg, selector: str = "analytic", device=None) -> _Runner:
+    """The runner of a solo ``cfg``, its kernel launch shape ``cfg.tiles``
+    or (empty) resolved by ``selector`` for ``device`` (:func:`body_tiles`):
+    a body captured with other tiles is never replayed for these."""
+    if not cfg.tiles:
+        cfg = dataclasses.replace(cfg, tiles=body_tiles(
+            cfg.backend, cfg.deltas[0], cfg.n_attrs, cfg.cap, cfg.m, cfg.v_max, cfg.mp_chunk,
+            selector, device))
+    return _runner(cfg)
 
 
 def make_engine_run(delta: str, mode: str, backend: str, n_attrs: int, cap: int, m: int,
                     v_max: int, tol: float, tie_tol: float, shrink: bool, max_sel: int,
                     mp_chunk: int = 64, ladder: bool = False, selector: str = "analytic",
                     tiles: Sequence[int] = (), device=None):
-    """The full reduction as one device-resident loop (single process).
-
-    Cached per normalized config: one runner, so one CUDA graph capture per
-    config and device, whatever the data (operands are copied into the
-    runner's buffers on every call).  A kernel backend's launch shape is
-    ``tiles``, or (empty) resolved by ``selector`` for ``device``
-    (:func:`body_tiles`); it is part of the config.
-    """
-    return _make_engine_run(*_cfg_key(delta, mode, backend, n_attrs, cap, m, v_max, tol,
-                                      tie_tol, shrink, max_sel, mp_chunk, ladder, selector,
-                                      tiles, device))
+    """The full reduction as one device-resident loop (single process):
+    ``run(st, x, d, w, n, theta_full, core_attrs, core_count) -> final
+    state``, cached per normalized config (:func:`runner_for`)."""
+    cfg = _Cfg.solo(delta, mode, backend, n_attrs, cap, m, v_max, tol, tie_tol, shrink, max_sel,
+                    mp_chunk)
+    return runner_for(dataclasses.replace(cfg, tiles=tuple(int(t) for t in tiles)), selector,
+                      device)
 
 
-@lru_cache(maxsize=None)
-def _make_engine_run(*key):
-    obs.counter("plar_engine_run_factories_total",
-                "distinct while_loop engine configs traced").inc()
-    return _EngineRun(_Cfg(*key))
-
-
-class _EngineRunMesh:
-    """The mesh reduction as one loop on each rank: ``run(st, x, d, w, n,
-    theta_full, core_attrs, core_count) -> final state``, with this rank's
-    shard of ``x``/``d``/``w`` and of the state's granule fields, and the
-    replicated rest.  The body is :func:`_mesh_body`."""
-
-    def __init__(self, cfg: _Cfg, mesh, collective: str):
-        self.cfg = cfg
-        self.coll = _MeshColl(mesh)
-        self.loop = _Loop(partial(_mesh_body, cfg, self.coll, collective))
-
-    def __call__(self, st, x, d, w, n, theta_full, core_attrs, core_count) -> SelectionState:
-        cfg = self.cfg
-        op = _operands(cfg, x, d, w, n, theta_full, core_attrs, core_count, cfg.tol,
-                       cfg.tie_tol, cfg.max_sel, cfg.shrink, st.r_ids.device)
-        op = dataclasses.replace(op, x_t=_mesh_cand_slab(cfg, self.coll, self.coll.n_model, op.x))
-        max_bodies = min(cfg.n_attrs, int(core_count) + max(cfg.max_sel, 0))
-        return self.loop(op, st, max_bodies)
+def make_engine_step(*args, **kwargs):
+    """One greedy iteration (evaluate → argmin → advance), for inspection:
+    the body that ``make_engine_run`` of the same arguments loops, with its
+    call signature."""
+    return make_engine_run(*args, **kwargs).step
 
 
 def make_engine_run_mesh(mesh, collective: str, delta: str, backend: str, n_attrs: int,
@@ -893,16 +920,9 @@ def make_engine_run_mesh(mesh, collective: str, delta: str, backend: str, n_attr
     ``mp_chunk`` is inert (the 'model' axis is the MP level).  Cached per
     mesh and config: one capture per config on a card.
     """
-    return _make_engine_run_mesh(mesh, str(collective), *_cfg_key(
-        delta, "incremental", backend, n_attrs, cap, m, v_max, tol, tie_tol, False, max_sel,
-        n_attrs, ladder, selector))
-
-
-@lru_cache(maxsize=None)
-def _make_engine_run_mesh(mesh, collective, *key):
-    obs.counter("plar_engine_run_factories_total",
-                "distinct while_loop engine configs traced").inc()
-    return _EngineRunMesh(_Cfg(*key), mesh, collective)
+    cfg = _Cfg.solo(delta, "incremental", backend, n_attrs, cap, m, v_max, tol, tie_tol, False,
+                    max_sel, n_attrs)
+    return _runner(cfg, mesh, str(collective))
 
 
 def _forced_attrs(n_attrs: int, forced) -> np.ndarray:
@@ -994,123 +1014,17 @@ def run_engine(runner, cap: int, n_attrs: int, valid, x, d, w, n, theta_full: fl
     return reduct, hist, iters, n_evals, [per_body] * n_bodies
 
 
-def _to_host(order: torch.Tensor, hist: torch.Tensor, nsel: torch.Tensor):
-    """``order``, ``theta_history`` and ``n_selected`` in one counted
-    device→host read (the f32 history travels as its int32 bits)."""
-    flat = to_host(torch.cat([order.reshape(-1), hist.reshape(-1).view(torch.int32),
-                              nsel.reshape(-1)])).numpy()
-    a, b = order.numel(), hist.numel()
-    return (flat[:a].reshape(order.shape), flat[a: a + b].view(np.float32).reshape(hist.shape),
-            flat[a + b:].reshape(nsel.shape))
-
-
 def unpack_result(fin: SelectionState, core_count: int):
-    """Host-side unpack: (reduct, theta_history, greedy_iterations, n_evals).
-
-    The single device→host transfer of the whole greedy phase.
-    """
-    order, hist, nsel = _to_host(fin.order, fin.theta_history, fin.n_selected)
-    nsel = int(nsel)
-    reduct = [int(a) for a in order[:nsel]]
-    theta_hist = [float(t) for t in hist[:nsel]]
-    iters = nsel - core_count
-    # the engine evaluates ALL A candidates each greedy iteration (selected
-    # ones are masked after the fact); report that count
-    return reduct, theta_hist, iters, iters * fin.remaining.shape[0]
+    """Host-side unpack of a solo state: (reduct, theta_history,
+    greedy_iterations, n_evals), :func:`unpack_ensemble_result`'s one
+    device→host transfer for a grid of one."""
+    return unpack_ensemble_result(SelectionState(*(t[None] for t in fin.tensors())),
+                                  [core_count])[0]
 
 
 # ---------------------------------------------------------------------------
 # stacked multi-config engine (DESIGN.md §3.8)
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class EnsembleOperands:
-    """Per-config parameters of the stacked engine, leading axis ``[C]``.
-
-      tol         [C]           f32   stopping tolerance
-      tie_tol     [C]           f32   argmin tie band
-      max_sel     [C]           i32   max_features (n_attrs when unbounded)
-      shrink      [C]           bool  FSPA universe shrinking
-      theta_full  [C]           f32   Θ(D|C) stopping target (per-config w)
-      n           [C]           i32   total row weight |U|
-      w           [C, cap]      i32   granule weights (bagged resample seam)
-      core_attrs  [C, max(A,1)] i32   forced-selection prefix, padded
-      core_count  [C]           i32   number of forced selections
-
-    Each config's measure is static: it is part of the runner's key
-    (:func:`make_ensemble_run`'s ``deltas``), and each config's slice of the
-    body evaluates exactly that measure.
-    """
-
-    tol: torch.Tensor
-    tie_tol: torch.Tensor
-    max_sel: torch.Tensor
-    shrink: torch.Tensor
-    theta_full: torch.Tensor
-    n: torch.Tensor
-    w: torch.Tensor
-    core_attrs: torch.Tensor
-    core_count: torch.Tensor
-
-    @property
-    def n_cfgs(self) -> int:
-        return self.tol.shape[0]
-
-
-@dataclasses.dataclass(frozen=True)
-class _EnsCfg:
-    """Static configuration of the stacked engine: the shared evaluation
-    strategy, the shapes, and each config's measure."""
-
-    mode: str            # "incremental" | "spark"
-    backend: str         # ENSEMBLE_BACKENDS
-    deltas: Tuple[str, ...]
-    n_attrs: int
-    cap: int
-    m: int
-    v_max: int
-    mp_chunk: int
-    ladder: bool = False
-    selector: str = "heuristic"
-    tiles: Tuple[int, ...] = ()  # always (): the ensemble's backends launch no kernel
-
-    @property
-    def n_cfgs(self) -> int:
-        return len(self.deltas)
-
-    @property
-    def n_bins(self) -> int:
-        return self.cap * self.v_max
-
-
-def _ensemble_body(cfg: _EnsCfg, op: _Operands, st: SelectionState):
-    """One stacked body: every config's solo iteration, each frozen once its
-    own condition is false (conditions are monotone, so a frozen config
-    stays frozen and its trajectory is exactly its solo one)."""
-    go = _cond(st, op, cfg.n_attrs)                            # [C]
-    new = SelectionState.stack([_select(cfg, delta, st.config(c), op.config(c))
-                                for c, delta in enumerate(cfg.deltas)])
-    out = st.where(go, new)
-    return out, ~_cond(out, op, cfg.n_attrs).any()
-
-
-class _EnsembleRun:
-    """The whole grid as one loop: ``run(st_stack, x, d, ops) -> st_stack``."""
-
-    def __init__(self, cfg: _EnsCfg):
-        self.cfg = cfg
-        self.loop = _Loop(partial(_ensemble_body, cfg))
-
-    def __call__(self, st: SelectionState, x, d, ops: EnsembleOperands) -> SelectionState:
-        cfg = self.cfg
-        if ops.n_cfgs != cfg.n_cfgs:
-            raise ValueError(f"{ops.n_cfgs} operand configs for a runner of {cfg.n_cfgs}")
-        op = _operands(cfg, x, d, ops.w, ops.n, ops.theta_full, ops.core_attrs,
-                       ops.core_count, ops.tol, ops.tie_tol, ops.max_sel, ops.shrink,
-                       st.r_ids.device)
-        bounds = (op.core_count.to(torch.int64) + op.max_sel.clamp(min=0)).tolist()
-        return self.loop(op, st, min(cfg.n_attrs, max(bounds)))
 
 
 def make_ensemble_run(mode: str, backend: str, deltas: Sequence[str], n_attrs: int, cap: int,
@@ -1123,28 +1037,13 @@ def make_ensemble_run(mode: str, backend: str, deltas: Sequence[str], n_attrs: i
     and ``ops`` is the :class:`EnsembleOperands` stack.  ``deltas`` names
     each config's measure.
     """
-    if backend not in ENSEMBLE_BACKENDS:
-        raise ValueError(
-            f"ensemble engine does not support backend={backend!r} "
-            f"(one of: {', '.join(ENSEMBLE_BACKENDS)})")
-    if ladder and backend != "sweep_xla":
-        raise ValueError(
-            "ensemble ladder requires backend='sweep_xla': the stacked loop "
-            "shares one rung across configs, which is only bit-safe under the "
-            "§5.3 sweep rung invariance")
+    check_stacked(backend, ladder)
     deltas = tuple(str(dd) for dd in deltas)
     bad = [dd for dd in deltas if dd not in ENSEMBLE_DELTAS]
     if bad:
         raise ValueError(f"unknown measures {bad} (one of: {', '.join(ENSEMBLE_DELTAS)})")
-    return _make_ensemble_run(str(mode), str(backend), deltas, int(n_attrs), int(cap), int(m),
-                              int(v_max), int(mp_chunk), bool(ladder), str(selector))
-
-
-@lru_cache(maxsize=None)
-def _make_ensemble_run(*key):
-    obs.counter("plar_engine_ensemble_factories_total",
-                "distinct stacked-engine configs traced").inc()
-    return _EnsembleRun(_EnsCfg(*key))
+    return _runner(_Cfg(deltas, str(mode), str(backend), int(n_attrs), int(cap), int(m),
+                        int(v_max), int(mp_chunk)))
 
 
 def init_ensemble_state(cap: int, n_attrs: int, valid, n_cfgs: int, device=None) -> SelectionState:
@@ -1177,9 +1076,16 @@ def run_ensemble(runner, cap: int, n_attrs: int, valid, x, d, ops: EnsembleOpera
 
 def unpack_ensemble_result(fin: SelectionState, core_counts) -> List[tuple]:
     """Stacked final state → per-config (reduct, theta_history, iterations,
-    n_evals), in one device→host transfer for the whole grid."""
-    order, hist, nsel = _to_host(fin.order, fin.theta_history, fin.n_selected)
-    n_attrs = fin.remaining.shape[-1]
+    n_evals), in one device→host transfer for the whole grid.  The engine
+    evaluates all A candidates each greedy iteration (selected ones are
+    masked after the fact): ``n_evals`` counts them.  The f32 history
+    travels as its int32 bits."""
+    n_cfgs, n_attrs = fin.order.shape
+    flat = to_host(torch.cat([fin.order.reshape(-1), fin.theta_history.reshape(-1).view(
+        torch.int32), fin.n_selected.reshape(-1)])).numpy()
+    order = flat[:n_cfgs * n_attrs].reshape(n_cfgs, n_attrs)
+    hist = flat[n_cfgs * n_attrs: 2 * n_cfgs * n_attrs].view(np.float32).reshape(n_cfgs, n_attrs)
+    nsel = flat[2 * n_cfgs * n_attrs:]
     out = []
     for c, cc in enumerate(core_counts):
         ns = int(nsel[c])

@@ -9,7 +9,8 @@ The PyTorch port of ``repro.core.plan``.  Two modes:
   contingency reduction into ``K·V`` exact bins.
 
 Backends keep the JAX package's names, so one parameter list drives both
-packages:
+packages; :data:`BACKENDS` holds what the drivers need to know of each, and
+every backend tuple of the core is read from it:
 
 * ``segment`` / ``onehot`` — plain PyTorch (a scatter-add, a chunked one-hot
   contraction): the JAX package computes these in XLA, not in Pallas.
@@ -33,7 +34,7 @@ the run's bound ``cap·v_max``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,8 +53,18 @@ __all__ = [
     "sweep_contingency",
     "theta_tiled_raw",
     "LADDER_TILE",
+    "BACKENDS",
+    "DEVICE_BACKENDS",
+    "ENSEMBLE_BACKENDS",
+    "KERNEL_BACKENDS",
+    "MESH_BACKENDS",
     "SWEEP_BACKENDS",
     "SELECTOR_MODES",
+    "check_backend",
+    "check_engine",
+    "check_mode",
+    "check_selector",
+    "check_stacked",
 ]
 
 # Bin-tile width of the ladder/sweep schedules (DESIGN.md §5.3), and the
@@ -61,11 +72,82 @@ __all__ = [
 # are tile-for-tile alike.
 LADDER_TILE = 256
 
-# Tile/rung selection modes the drivers accept: the kernels' own
-# (``kernels/contingency/autotune.SELECTOR_MODES``, which imports this
-# module's package and so cannot be imported here).  The selector picks the
-# CUDA kernels' launch shapes and, with ``analytic``, prunes the ladder.
+# Tile/rung selection modes, the drivers' and the kernels' alike
+# (``kernels/contingency/autotune`` imports them from here).  The selector
+# picks the CUDA kernels' launch shapes and, with ``analytic``, prunes the
+# ladder.
 SELECTOR_MODES = ("heuristic", "analytic", "pinned")
+
+
+class Backend(NamedTuple):
+    """What the drivers know of a Θ backend."""
+
+    kernel: Optional[str]  # the CUDA kernel it launches (autotune's name), or None
+    slab: bool             # takes slab operands x_t [nc, G] + r_ids, not packed ids
+    device: bool           # engine="auto" runs it on the device engine (JAX's rule)
+    stacked: bool          # may ride the stacked engine: its measure splits off the contingency
+    mesh: bool             # the mesh drivers evaluate it
+
+
+BACKENDS = {
+    "segment": Backend(None, slab=False, device=True, stacked=True, mesh=True),
+    "onehot": Backend(None, slab=False, device=True, stacked=True, mesh=False),
+    "pallas": Backend("contingency", slab=False, device=False, stacked=False, mesh=False),
+    "fused": Backend("fused", slab=False, device=False, stacked=False, mesh=False),
+    "fused_xla": Backend(None, slab=False, device=True, stacked=False, mesh=False),
+    "sweep": Backend("sweep", slab=True, device=False, stacked=False, mesh=False),
+    "sweep_xla": Backend(None, slab=True, device=True, stacked=True, mesh=True),
+}
+_THETA_BACKENDS = tuple(BACKENDS)
+SWEEP_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.slab)
+DEVICE_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.device)
+KERNEL_BACKENDS = {b: e.kernel for b, e in BACKENDS.items() if e.kernel}
+ENSEMBLE_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.stacked)
+MESH_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.mesh)
+MODES = ("incremental", "spark")
+ENGINES = ("auto", "host", "device")
+
+
+def _check_in(what: str, value, allowed: Sequence[str]) -> None:
+    if value not in allowed:
+        raise ValueError(f"unknown {what}: {value!r} (one of: {', '.join(allowed)})")
+
+
+def check_mode(mode: str) -> None:
+    _check_in("mode", mode, MODES)
+
+
+def check_engine(engine: str) -> None:
+    _check_in("engine", engine, ENGINES)
+
+
+def check_backend(backend: str, allowed: Sequence[str] = _THETA_BACKENDS,
+                  engine: str = "") -> None:
+    """Raise unless ``backend`` is one of ``allowed``, the backends of the
+    ``engine`` named (``"mesh "``, ``"stacked-engine "``; every one by
+    default)."""
+    _check_in(f"{engine}Θ backend", backend, allowed)
+
+
+def check_selector(selector: Optional[str], what: str = "tile selector") -> None:
+    """Raise unless ``selector`` is ``None`` (the default mode) or one of
+    :data:`SELECTOR_MODES`; ``what`` names it in the message."""
+    if selector is not None:
+        _check_in(what, selector, SELECTOR_MODES)
+
+
+def check_stacked(backend: str, ladder: bool = False) -> None:
+    """Raise unless ``backend``, and ``ladder``, may ride the stacked engine.
+
+    The stacked loop shares one rung across configs, which is bit-safe only
+    under the slab backends' rung invariance (DESIGN.md §5.3).
+    """
+    check_backend(backend, ENSEMBLE_BACKENDS, "stacked-engine ")
+    if ladder and not BACKENDS[backend].slab:
+        raise ValueError(
+            "the stacked engine's ladder requires a slab backend ("
+            + ", ".join(b for b in ENSEMBLE_BACKENDS if BACKENDS[b].slab)
+            + f"), not {backend!r}")
 
 
 def ladder_rungs(n_bins: int, tile: int = LADDER_TILE, *,
@@ -208,12 +290,6 @@ def _cont_kernel(packed, d, w, valid, n_bins, m, selector=None, tiles=None):
                    **_tile_kwargs("contingency", tiles))
 
 
-def _check_selector(selector: Optional[str]) -> None:
-    if selector is not None and selector not in SELECTOR_MODES:
-        raise ValueError(
-            f"unknown selector: {selector!r} (one of: {', '.join(SELECTOR_MODES)})")
-
-
 def candidate_contingency(
     packed: torch.Tensor,
     d: torch.Tensor,
@@ -232,7 +308,6 @@ def candidate_contingency(
     ``pallas`` backend's CUDA launch takes ``tiles`` (``(threads, ctas)``)
     or resolves them with ``selector``.
     """
-    _check_selector(selector)
     if backend == "segment":
         return _cont_segment(packed, d, w, valid, n_bins, m)
     if backend == "onehot":
@@ -282,11 +357,6 @@ def theta_tiled_raw(delta: str, cont: torch.Tensor, *, tile: int = LADDER_TILE) 
     return raw
 
 
-SWEEP_BACKENDS = ("sweep", "sweep_xla")
-_THETA_BACKENDS = ("segment", "onehot", "pallas", "fused", "fused_xla",
-                   "sweep", "sweep_xla")
-
-
 def candidate_theta(
     delta: str,
     packed: Optional[torch.Tensor],
@@ -316,7 +386,6 @@ def candidate_theta(
     of ``model.TILE_FIELDS``, or resolve them with ``selector``; tiles never
     change a bit.
     """
-    _check_selector(selector)
     if backend in SWEEP_BACKENDS:
         if x_t is None or r_ids is None or v_max is None:
             raise ValueError(
@@ -340,10 +409,7 @@ def candidate_theta(
     if backend == "fused_xla":
         cont = _cont_segment(packed, d, w, valid, n_bins, m)
         return measures.theta_scale(delta, theta_tiled_raw(delta, cont), n)
-    if backend not in _THETA_BACKENDS:
-        raise ValueError(
-            f"unknown Θ backend: {backend!r} "
-            f"(one of: {', '.join(_THETA_BACKENDS)})")
+    check_backend(backend)
     cont = candidate_contingency(packed, d, w, valid, n_bins=n_bins, m=m,
                                  backend=backend, selector=selector, tiles=tiles)
     return measures.evaluate(delta, cont, n)

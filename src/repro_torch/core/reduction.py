@@ -16,9 +16,10 @@ iteration.
 Two greedy loops, as in the JAX package: the device-resident engine
 (``core/engine.py``: one captured body replayed on the card, no host read
 but a ``done`` flag) and the host loop (one device→host sync per
-iteration, the only loop that runs the CUDA Θ kernels).  ``engine="auto"``
-takes the device engine for :data:`DEVICE_BACKENDS` and the host loop
-otherwise; both record byte-identical Θ histories.
+iteration).  Both evaluate candidates with the engine's ``_eval_chunk`` and
+fold with its ``_advance``.  ``engine="auto"`` takes the device engine for
+:data:`DEVICE_BACKENDS` and the host loop otherwise (the CUDA kernel
+backends); both record byte-identical Θ histories.
 :func:`plar_reduce_ensemble` runs a grid of configs over one granularity in
 one stacked engine loop.
 
@@ -49,17 +50,16 @@ from repro_torch.device import (DeviceLike, host_float, host_int, host_reads,
 from . import measures
 from .engine import (
     _LOCAL,
-    DEVICE_BACKENDS,
-    ENSEMBLE_BACKENDS,
     ENSEMBLE_DELTAS,
     EnsembleOperands,
     _advance,
     _Cfg,
+    _eval_chunk,
     _spark_thetas,
-    make_engine_run,
     make_ensemble_run,
     run_engine,
     run_ensemble,
+    runner_for,
     unpack_ensemble_result,
 )
 from .granularity import (
@@ -69,18 +69,24 @@ from .granularity import (
     chain_fallbacks,
     column_terms,
     next_pow2,
-    pack_ids,
     row_fingerprints,
     with_capacity,
 )
 from .plan import (
-    SELECTOR_MODES,
-    SWEEP_BACKENDS,
-    candidate_theta,
+    _THETA_BACKENDS as _BACKENDS,
+    BACKENDS,
+    DEVICE_BACKENDS,
+    check_backend,
+    check_engine,
+    check_mode,
+    check_selector,
+    check_stacked,
     contingency_from_ids,
     ids_by_sort,
+    ladder_rungs,
     rung_for,
     subset_ids,
+    theta_for_ids,
 )
 
 __all__ = ["ReductionResult", "plar_reduce", "plar_reduce_ensemble",
@@ -90,10 +96,6 @@ __all__ = ["ReductionResult", "plar_reduce", "plar_reduce_ensemble",
            "partition_reduce_params", "DEVICE_BACKENDS",
            "ENSEMBLE_SHARED_KEYS"]
 
-_MODES = ("incremental", "spark")
-_BACKENDS = ("segment", "onehot", "pallas", "fused", "fused_xla", "sweep",
-             "sweep_xla")
-_ENGINES = ("auto", "host", "device")
 _MASK32 = 0xFFFFFFFF
 
 
@@ -106,11 +108,9 @@ def _resolve_engine(engine: str, backend: str) -> str:
     either kind on the engine, a kernel backend's launch shape fixed once a
     runner.
     """
-    if engine not in _ENGINES:
-        raise ValueError(
-            f"unknown engine: {engine!r} (one of: {', '.join(_ENGINES)})")
+    check_engine(engine)
     if engine == "auto":
-        return "device" if backend in DEVICE_BACKENDS else "host"
+        return "device" if BACKENDS[backend].device else "host"
     return engine
 
 
@@ -444,16 +444,9 @@ def plar_reduce(
     further greedy additions.
     """
     t0 = time.perf_counter()
-    if mode not in _MODES:
-        raise ValueError(
-            f"unknown mode: {mode!r} (one of: {', '.join(_MODES)})")
-    if backend not in _BACKENDS:
-        raise ValueError(
-            f"unknown Θ backend: {backend!r} (one of: {', '.join(_BACKENDS)})")
-    if selector not in SELECTOR_MODES:
-        raise ValueError(
-            f"unknown selector: {selector!r} "
-            f"(one of: {', '.join(SELECTOR_MODES)})")
+    check_mode(mode)
+    check_backend(backend)
+    check_selector(selector, "selector")
     engine = _resolve_engine(engine, backend)
     launches0 = _launches()
     with _counted_span("reduce.plar", delta=delta, backend=backend, engine=engine) as sp:
@@ -471,9 +464,7 @@ def plar_reduce(
         with obs.span("reduce.theta_full"):
             _check_codes(gran)
             ids_c, _k = subset_ids(gran, list(range(A)), exact=exact)
-            cont_c = contingency_from_ids(ids_c, gran.d, gran.w, gran.valid,
-                                          n_bins=gran.capacity, m=gran.n_dec)
-            theta_full = host_float(measures.evaluate(delta, cont_c, gran.n_total))
+            theta_full = host_float(theta_for_ids(delta, ids_c, gran, n_bins=gran.capacity))
 
         # --- core (skipped under warm_start: the prefix stands in for it) ---
         core: List[int] = []
@@ -485,22 +476,20 @@ def plar_reduce(
                 sp_core.set(core=len(core))
             n_evals += A
         max_sel = int(max_features) if max_features is not None else A
-        cfg = _Cfg(delta, mode, backend, A, gran.capacity, gran.n_dec, gran.v_max, float(tol),
-                   float(tie_tol), bool(shrink), max_sel, int(mp_chunk), bool(ladder),
-                   str(selector))
+        cfg = _Cfg.solo(delta, mode, backend, A, gran.capacity, gran.n_dec, gran.v_max, tol,
+                        tie_tol, shrink, max_sel, mp_chunk)
 
         if engine == "device":
             # core folds + greedy loop + stopping rule as one device-resident
             # loop (core/engine.py), one device→host transfer at the end
             reduct, theta_hist, iterations, ev, per_iter_s = run_engine(
-                make_engine_run(*dataclasses.astuple(cfg), device=gran.device), gran.capacity,
-                A, gran.valid, gran.x, gran.d, gran.w, gran.n_total, theta_full, core,
-                warm_start=warm)
+                runner_for(cfg, selector, gran.device), gran.capacity, A, gran.valid, gran.x,
+                gran.d, gran.w, gran.n_total, theta_full, core, warm_start=warm)
         else:
             forced = core if warm is None else warm
             with obs.span("reduce.greedy", forced=len(forced)):
                 reduct, theta_hist, iterations, ev, per_iter_s = _host_loop(
-                    cfg, gran, forced, theta_full)
+                    cfg, gran, forced, theta_full, ladder=ladder, selector=selector)
         n_evals += ev
         sp.set(iterations=iterations, evaluations=n_evals, launches=_launches() - launches0)
 
@@ -516,14 +505,15 @@ def plar_reduce(
     )
 
 
-def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: float):
-    """The host greedy loop, one sync an iteration (the only loop that runs
-    the CUDA Θ kernels): fold the forced prefix, then add the argmin
-    candidate while Θ(D|R) is above the stopping target.  Returns
-    ``(reduct, theta_history, iterations, evaluations, per_iteration_s)``,
-    as :func:`~.engine.run_engine` does.  One ``reduce.iteration`` span an
-    iteration, ended by its read of Θ(D|R)."""
-    delta, mode, backend, v = cfg.delta, cfg.mode, cfg.backend, cfg.v_max
+def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: float, *,
+               ladder: bool, selector: str):
+    """The host greedy loop, one sync a candidate chunk: fold the forced
+    prefix, then add the argmin candidate while Θ(D|R) is above the
+    stopping target.  Returns ``(reduct, theta_history, iterations,
+    evaluations, per_iteration_s)``, as :func:`~.engine.run_engine` does.
+    One ``reduce.iteration`` span an iteration, ended by its read of
+    Θ(D|R)."""
+    (delta,), mode, backend, v = cfg.deltas, cfg.mode, cfg.backend, cfg.v_max
     A, cap, m, n, dev = gran.n_attrs, gran.capacity, gran.n_dec, gran.n_total, gran.device
     r_ids = torch.zeros((cap,), dtype=torch.int32, device=dev)
     k = 1
@@ -535,44 +525,45 @@ def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: floa
     per_iter_s: List[float] = []
     n_evals = 0
 
-    # The advance is the device engine's, at the full bin bound cap·V
-    # whatever the backend: Θ(D|R) is summed over the same rows on every
-    # path, which keeps theta histories byte-identical across engines,
-    # backends and the ladder.
-    def adv(r, a_col, act):
-        return _advance(cfg, _LOCAL, r, a_col, gran.d, gran.w, act, n)
+    rungs = ladder_rungs(cfg.n_bins, selector=selector, g=cap, m=m) if ladder else None
 
     def _eval_bins_for(k_):
-        if cfg.ladder:
-            return rung_for(k_, v, cfg.rungs)
+        if ladder:
+            return rung_for(k_, v, rungs)
         # the XLA-twin backends keep the full bound (the JAX device engine's
         # grouping); the kernel backends take the cheaper pow2 bound
-        return cap * v if backend in DEVICE_BACKENDS else next_pow2(max(k_, 1)) * v
+        return cap * v if BACKENDS[backend].device else next_pow2(max(k_, 1)) * v
 
-    # read-once candidate slab for the sweep backends, hoisted out of the loop
-    x_t_full = gran.x.t().contiguous() if backend in SWEEP_BACKENDS else None
+    # read-once candidate slab for the slab backends, hoisted out of the loop
+    x_t_full = gran.x.t().contiguous() if BACKENDS[backend].slab else None
 
     # the stop threshold in f32 arithmetic, as the JAX drivers compute it
     stop_thresh = measures.f32_threshold(theta_full, cfg.tol)
     n_np = np.float32(host_int(n))
 
-    def _shrink_step(g_pure):
-        nonlocal pr_correction, active
-        if delta == "PR":
-            shed = np.float32(host_int(torch.where(g_pure, gran.w, torch.zeros_like(gran.w))
-                                       .sum()))
-            pr_correction = pr_correction - np.float32(shed / n_np)
-        active = active & ~g_pure
+    def fold(a):
+        """Add ``a`` to R, then shrink; Θ(D|R) with the correction before it.
 
-    # fold the forced prefix (core attributes, or the warm-start prefix)
-    for a in forced:
-        r_ids, k_new, theta_r, g_pure = adv(r_ids, gran.x[:, a], active)
+        The advance is the device engine's, at the full bin bound cap·V
+        whatever the backend: Θ(D|R) is summed over the same rows on every
+        path, which keeps theta histories byte-identical across engines,
+        backends and the ladder."""
+        nonlocal r_ids, k, active, pr_correction
+        r_ids, k_new, theta, g_pure = _advance(cfg, _LOCAL, r_ids, gran.x[:, a], gran.d, gran.w,
+                                               active, n, delta)
         k = host_int(k_new)
         reduct.append(a)
-        theta_hist.append(float(np.float32(host_float(theta_r)) + pr_correction))
+        theta_hist.append(float(np.float32(host_float(theta)) + pr_correction))
         if cfg.shrink:
-            _shrink_step(g_pure)
+            if delta == "PR":
+                shed = np.float32(host_int(torch.where(g_pure, gran.w, torch.zeros_like(gran.w))
+                                           .sum()))
+                pr_correction = pr_correction - np.float32(shed / n_np)
+            active = active & ~g_pure
+        return theta_hist[-1]
 
+    for a in forced:           # the core attributes, or the warm-start prefix
+        fold(a)
     theta_r = theta_hist[-1] if theta_hist else float("inf")
 
     remaining = [a for a in range(A) if a not in reduct]
@@ -586,12 +577,7 @@ def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: floa
             thetas = np.full((len(remaining),), np.inf, np.float64)
             if mode == "spark":
                 # re-key from scratch: fingerprint of the current R columns
-                if reduct:
-                    hR1 = sum_terms(gran.x, reduct, 0)
-                    hR2 = sum_terms(gran.x, reduct, 7919)
-                else:
-                    hR1 = torch.zeros((cap,), dtype=torch.int64, device=dev)
-                    hR2 = torch.zeros((cap,), dtype=torch.int64, device=dev)
+                hR1, hR2 = sum_terms(gran.x, reduct, 0), sum_terms(gran.x, reduct, 7919)
                 for s in range(0, len(remaining), nc):
                     cols = remaining[s: s + nc]
                     vals = _spark_thetas(delta, hR1, hR2, cols, gran.x, gran.d, gran.w, active,
@@ -601,31 +587,16 @@ def _host_loop(cfg: _Cfg, gran: Granularity, forced: List[int], theta_full: floa
                 eval_bins = _eval_bins_for(k)
                 for s in range(0, len(remaining), nc):
                     cols = torch.tensor(remaining[s: s + nc], dtype=torch.int64, device=dev)
-                    if backend in SWEEP_BACKENDS:
-                        vals = candidate_theta(
-                            delta, None, gran.d, gran.w, active, n, n_bins=eval_bins, m=m,
-                            backend=backend, x_t=x_t_full.index_select(0, cols),
-                            r_ids=r_ids, v_max=v, selector=cfg.selector)
-                    else:
-                        x_cand = gran.x.index_select(1, cols).t()            # [nc, G]
-                        packed = pack_ids(r_ids[None, :], x_cand, v).contiguous()
-                        vals = candidate_theta(
-                            delta, packed, gran.d, gran.w, active, n, n_bins=eval_bins,
-                            m=m, backend=backend, selector=cfg.selector)
+                    x_cand = (gran.x.index_select(1, cols).t() if x_t_full is None
+                              else x_t_full.index_select(0, cols))           # [nc, G]
+                    vals = _eval_chunk(delta, x_cand, r_ids, gran.d, gran.w, active, n,
+                                       n_bins=eval_bins, m=m, v_max=v, backend=backend,
+                                       selector=selector)
                     thetas[s: s + len(cols)] = to_host(vals + corr).numpy()
             n_evals += len(remaining)
 
             best = measures.argmin_with_ties(thetas, cfg.tie_tol)  # paper line 13: argmin Θ
-            a_opt = remaining[best]
-
-            r_ids, k_new, theta_active, g_pure = adv(r_ids, gran.x[:, a_opt], active)
-            k = host_int(k_new)
-            theta_r = float(np.float32(host_float(theta_active)) + pr_correction)
-            reduct.append(a_opt)
-            remaining.remove(a_opt)
-            theta_hist.append(theta_r)
-            if cfg.shrink:
-                _shrink_step(g_pure)
+            theta_r = fold(remaining.pop(best))
             sp.set(k=k)
         iterations += 1
         per_iter_s.append(time.perf_counter() - it0)
@@ -676,11 +647,10 @@ def partition_reduce_params(delta: str, params: dict):
             shared[k] = v
         else:
             return None
-    if shared.get("backend", "segment") not in ENSEMBLE_BACKENDS:
-        return None
-    if shared.get("ladder") and shared.get("backend") != "sweep_xla":
-        return None
-    if shared.get("mode", "incremental") not in _MODES:
+    try:
+        check_stacked(shared.get("backend", "segment"), shared.get("ladder", False))
+        check_mode(shared.get("mode", "incremental"))
+    except ValueError:
         return None
     return config, shared
 
@@ -767,8 +737,8 @@ def plar_reduce_ensemble(
     n_dec: Optional[int] = None,
     v_max: Optional[int] = None,
     mode: str = "incremental",
-    backend: str = "segment",            # ENSEMBLE_BACKENDS
-    ladder: bool = False,                # requires backend="sweep_xla"
+    backend: str = "segment",            # plan.ENSEMBLE_BACKENDS
+    ladder: bool = False,                # requires a slab backend: sweep_xla
     selector: str = "analytic",
     mp_chunk: int = 64,
     grc_init: bool = True,
@@ -792,17 +762,9 @@ def plar_reduce_ensemble(
     entries are the loop average over every executed body in the grid.
     """
     t0 = time.perf_counter()
-    if mode not in _MODES:
-        raise ValueError(
-            f"unknown mode: {mode!r} (one of: {', '.join(_MODES)})")
-    if backend not in ENSEMBLE_BACKENDS:
-        raise ValueError(
-            f"ensemble backend must be one of {', '.join(ENSEMBLE_BACKENDS)}; "
-            f"got {backend!r} (run plar_reduce per config for host-only "
-            f"backends)")
-    if selector not in SELECTOR_MODES:
-        raise ValueError(
-            f"unknown selector: {selector!r} (one of: {', '.join(SELECTOR_MODES)})")
+    check_mode(mode)
+    check_stacked(backend, ladder)
+    check_selector(selector, "selector")
     cfgs = normalize_ensemble_configs(configs, seeds)
     gran = resolve_granularity(
         x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.plan import SELECTOR_MODES, check_selector
 from repro_torch.launch.roofline import DeviceSpec, device_spec
 
 from .model import (
@@ -73,6 +74,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "SELECTOR_MODES",
     "DEFAULT_SELECTOR",
+    "check_selector",
     "autotune_block_sizes",
     "autotune_cache_clear",
     "autotune_cache_info",
@@ -82,7 +84,6 @@ __all__ = [
     "shape_bucket",
 ]
 
-SELECTOR_MODES = ("heuristic", "analytic", "pinned")
 DEFAULT_SELECTOR = "analytic"
 
 # In-memory tuning cache: bounded LRU (a service process sweeps many (K, G)
@@ -157,10 +158,8 @@ def resolve_tiles(
     call it before a launch, outside any CUDA graph capture, so a captured
     body holds the tiles it was given.
     """
+    check_selector(selector)
     mode = DEFAULT_SELECTOR if selector is None else selector
-    if mode not in SELECTOR_MODES:
-        raise ValueError(
-            f"unknown tile selector: {mode!r} (one of: {', '.join(SELECTOR_MODES)})")
     if kernel not in TILE_FIELDS:
         raise ValueError(f"unknown kernel: {kernel!r} (one of: {', '.join(KERNELS)})")
     if mode == "pinned":

@@ -28,7 +28,7 @@ from repro_torch.core.measures import theta_scale
 
 from .. import build
 from ..launching import on_cpu as _on_cpu, stream as _stream
-from .autotune import SELECTOR_MODES, resolve_tiles
+from .autotune import check_selector, resolve_tiles
 from .model import TILE_FIELDS
 from .ref import contingency_ref, fused_theta_raw_ref, sweep_theta_ref
 
@@ -96,12 +96,6 @@ def _check_delta(delta: str) -> int:
     return _DELTA_CODE[delta]
 
 
-def _check_selector(selector: Optional[str]) -> None:
-    if selector is not None and selector not in SELECTOR_MODES:
-        raise ValueError(
-            f"unknown tile selector: {selector!r} (one of: {', '.join(SELECTOR_MODES)})")
-
-
 def launch_tiles(kernel: str, given: Sequence[Optional[int]], *, selector: Optional[str],
                  device, nc: int, g: int, n_bins: int, m: int, v_max: int = 1,
                  delta: str = "SCE") -> Tuple[int, ...]:
@@ -142,7 +136,7 @@ def contingency(
 
     Tiling: ``threads`` a CTA and at most ``ctas`` CTAs an SM.
     """
-    _check_selector(selector)
+    check_selector(selector)
     if _on_cpu("contingency", packed=packed, d=d, w=w):
         return contingency_ref(packed, d, w, n_bins=n_bins, n_dec=n_dec)
     packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
@@ -184,7 +178,7 @@ def fused_theta_raw(
     :func:`.ref.fused_theta_raw_ref`.  Tiling: long segments in chunks of at
     least ``chunk`` keys, ``threads`` a CTA of the count and scatter passes.
     """
-    _check_selector(selector)
+    check_selector(selector)
     if _on_cpu("fused_theta", packed=packed, d=d, w=w):
         return fused_theta_raw_ref(packed, d, w, delta=delta, n_bins=n_bins, n_dec=n_dec)
     packed, d, w = packed.contiguous(), d.contiguous(), w.contiguous()
@@ -273,7 +267,7 @@ def sweep_theta(
     allocates.  Tiling: ``bc`` candidates read an entry at once (1, 2, 4, 8),
     then the fused kernel's ``chunk`` and ``threads``.
     """
-    _check_selector(selector)
+    check_selector(selector)
     if _on_cpu("sweep_theta", x_t=x_t, r_ids=r_ids, d=d, w=w):
         return sweep_theta_ref(x_t, r_ids, d, w, n, delta=delta, v_max=v_max,
                                n_bins=n_bins, n_dec=n_dec)

@@ -24,7 +24,7 @@ from repro.core import har_reduce as j_har
 from repro.core import plar_reduce as j_plar
 from repro.core.oracle import reduct_oracle
 from repro_torch import obs
-from repro_torch.core import engine
+from repro_torch.core import engine, plan, reduction
 from repro_torch.core import fspa_reduce as t_fspa
 from repro_torch.core import har_reduce as t_har
 from repro_torch.core import plar_reduce as t_plar
@@ -298,12 +298,12 @@ def test_warm_start_validation():
 
 def test_engine_factory_cache_key():
     """One lru entry per logical config: positional, keyword, defaulted and
-    numpy-scalar calls to the engine factories key identically."""
-    for make, cached in ((engine.make_engine_run, engine._make_engine_run),
-                         (engine.make_engine_step, engine._make_engine_step)):
-        # a config no other test uses, so the first call is a genuine miss
-        args = ("SCE", "incremental", "segment", 5, 32, 2, 3, 1e-6, 2e-5, False, 5)
-        before = cached.cache_info().currsize
+    numpy-scalar calls to the engine factories key identically; the run and
+    the step of one config come from its one cached runner."""
+    # a config no other test uses, so the first call is a genuine miss
+    args = ("SCE", "incremental", "segment", 5, 32, 2, 3, 1e-6, 2e-5, False, 5)
+    before = engine._runner.cache_info().currsize
+    for make in (engine.make_engine_run, engine.make_engine_step):
         f0 = make(*args)                                    # defaulted tail
         f1 = make(*args, 64, False)                         # positional tail
         f2 = make(*args, mp_chunk=64, ladder=False)         # keyword tail
@@ -313,7 +313,7 @@ def test_engine_factory_cache_key():
                   tie_tol=np.float64(2e-5), shrink=np.bool_(False),
                   max_sel=np.int32(5))                      # numpy scalars
         assert f0 is f1 is f2 is f3
-        assert cached.cache_info().currsize == before + 1
+        assert engine._runner.cache_info().currsize == before + 1
 
 
 # ---------------------------------------------------------------------------
@@ -355,3 +355,46 @@ def test_result_independent_of_poll_period(monkeypatch, period):
     live, bodies, polls = len(r.reduct), span.args["bodies"], span.args["polls"]
     assert min(live + period, 9) <= bodies <= min(live + 2 * period - 1, 9)
     assert polls == -(-bodies // period)
+
+
+# ---------------------------------------------------------------------------
+# the backend table and the seams the benchmark's tools patch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,derived,expected", [
+    ("DEVICE_BACKENDS", engine.DEVICE_BACKENDS, ("segment", "onehot", "fused_xla", "sweep_xla")),
+    ("KERNEL_BACKENDS", engine.KERNEL_BACKENDS,
+     {"pallas": "contingency", "fused": "fused", "sweep": "sweep"}),
+    ("ENSEMBLE_BACKENDS", engine.ENSEMBLE_BACKENDS, ("segment", "onehot", "sweep_xla")),
+    ("SWEEP_BACKENDS", plan.SWEEP_BACKENDS, ("sweep", "sweep_xla")),
+    ("_THETA_BACKENDS", plan._THETA_BACKENDS,
+     ("segment", "onehot", "pallas", "fused", "fused_xla", "sweep", "sweep_xla")),
+    ("reduction._BACKENDS", reduction._BACKENDS,
+     ("segment", "onehot", "pallas", "fused", "fused_xla", "sweep", "sweep_xla")),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_backend_table_yields_the_tuples(name, derived, expected):
+    """Every backend tuple of the core is read from the one table and is
+    the tuple the drivers, tests and the JAX parameter list know."""
+    assert derived == expected
+    assert type(derived) is type(expected)
+    assert set(derived) <= set(plan.BACKENDS)
+
+
+def test_host_loop_sweep_goes_through_ops_sweep_theta(monkeypatch):
+    """The host loop's sweep evaluation looks the kernel up in
+    ``kernels.contingency.ops`` at call time (the seam a score-fault tool
+    patches), and a patched wrapper sees every chunk."""
+    from repro_torch.kernels.contingency import ops
+
+    x, d = _table(np.random.default_rng(71), 200, 8)
+    base = t_plar(x, d, delta="SCE", backend="sweep", engine="host", device=CPU)
+    inner, calls = ops.sweep_theta, []
+
+    def sweep_theta(x_t, r_ids, d_, w, n, **kw):
+        calls.append(x_t.shape[0])
+        return inner(x_t, r_ids, d_, w, n, **kw)
+    monkeypatch.setattr(ops, "sweep_theta", sweep_theta)
+    r = t_plar(x, d, delta="SCE", backend="sweep", engine="host", device=CPU)
+    assert (r.reduct, r.theta_history) == (base.reduct, base.theta_history)
+    assert sum(calls) == r.n_evaluations - len(x[0])     # every candidate past the core

@@ -21,6 +21,7 @@ from repro.core.reduction import partition_reduce_params as j_partition
 from repro.core import plar_reduce_ensemble as j_ensemble
 from repro.core import resolve_granularity as j_resolve
 from repro_torch import obs
+from repro_torch.core import engine
 from repro_torch.core import (
     ENSEMBLE_BACKENDS,
     bagged_weights,
@@ -263,3 +264,59 @@ def test_server_query_ensemble_cache_and_stats():
     assert stats == jstats
     for dd, r_t, r_j in zip(["PR", "SCE", "LCE"], r3, j3):
         _assert_jax(dd, r_t, r_j)
+
+
+# ---------------------------------------------------------------------------
+# one runner: the solo engine is the stacked engine of one config
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["segment", "onehot", "fused_xla", "sweep_xla"])
+@pytest.mark.parametrize("delta", ["PR", "SCE"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_solo_engine_is_the_stacked_engine_of_one_config(backend, delta, warm):
+    """The solo runner and a stacked runner of the one config give the same
+    reduct, Θ history, iterations and evaluations, bit for bit: cold (the
+    core forced) and warm (a prefix, seeded and resumed in the solo run,
+    forced in the stacked one).  Both equal the host loop."""
+    x, d = _table(np.random.default_rng(41), 220, 8, m=3)
+    gran = resolve_granularity(x, d, device=CPU)
+    host = plar_reduce(source=gran, delta=delta, backend=backend, engine="host", device=CPU)
+    a, cap, m, v = gran.n_attrs, gran.capacity, gran.n_dec, gran.v_max
+    forced = host.reduct[: len(host.reduct) // 2 + 1] if warm else host.core
+    solo = engine.run_engine(
+        engine.make_engine_run(delta, "incremental", backend, a, cap, m, v, 1e-6, 1e-5, False, a),
+        cap, a, gran.valid, gran.x, gran.d, gran.w, gran.n_total, host.theta_full,
+        [] if warm else forced, warm_start=forced if warm else None)
+    core_attrs = np.zeros((1, a), np.int32)
+    core_attrs[0, : len(forced)] = forced
+    ops = engine.EnsembleOperands(
+        tol=torch.tensor([1e-6]), tie_tol=torch.tensor([1e-5]),
+        max_sel=torch.tensor([a], dtype=torch.int32), shrink=torch.tensor([False]),
+        theta_full=torch.tensor([host.theta_full]), n=gran.n_total.reshape(1),
+        w=gran.w[None], core_attrs=torch.from_numpy(core_attrs),
+        core_count=torch.tensor([len(forced)], dtype=torch.int32))
+    stacked = engine._runner(engine._Cfg((delta,), "incremental", backend, a, cap, m, v, 64))
+    fin, _loop_s = engine.run_ensemble(stacked, cap, a, gran.valid, gran.x, gran.d, ops)
+    (reduct, hist, iters, n_evals), = engine.unpack_ensemble_result(fin, [len(forced)])
+    assert (reduct, hist, iters, n_evals) == tuple(solo[:4])
+    assert (reduct, hist) == (host.reduct, host.theta_history)
+
+
+def test_ensemble_candidate_scores_go_through_engine_candidate_theta(monkeypatch):
+    """The stacked body looks ``candidate_theta`` up in ``core.engine`` at
+    call time with the packed ids (the seam the ensemble cell's score tool
+    patches): a patched wrapper sees every member's candidates."""
+    x, d = _table(np.random.default_rng(43), 200, 7, m=3)
+    base = plar_reduce_ensemble(x, d, configs=DELTAS, device=CPU)
+    inner, seen = engine.candidate_theta, []
+
+    def candidate_theta(delta, packed, d_, w, valid, n, **kw):
+        seen.append((delta, packed.shape[0], kw["n_bins"], kw["m"]))
+        return inner(delta, packed, d_, w, valid, n, **kw)
+    monkeypatch.setattr(engine, "candidate_theta", candidate_theta)
+    ens = plar_reduce_ensemble(x, d, configs=DELTAS, device=CPU)
+    for r_e, r_b in zip(ens, base):
+        _assert_member(r_e, r_b)
+    assert {s[0] for s in seen} == set(DELTAS)
+    assert all(nc == 7 for _delta, nc, _nb, _m in seen)

@@ -289,11 +289,11 @@ def test_stacked_group_order_is_canonical():
         async with ReductServer(device=CPU) as srv:
             await srv.submit("s", x, d, n_dec=3, v_max=3)
             first = await asyncio.gather(*[srv.query("s", m) for m in DELTAS])
-            runners = engine._make_ensemble_run.cache_info().currsize
+            runners = engine._runner.cache_info().currsize
             await srv.update("s", x[:7], d[:7])
             order = ["CCE", "PR", "LCE", "SCE"]
             second = await asyncio.gather(*[srv.query("s", m) for m in order])
-            assert engine._make_ensemble_run.cache_info().currsize == runners
+            assert engine._runner.cache_info().currsize == runners
             assert srv.stats["engine_runs"] == 2
             gran = srv.handle("s").gran
             for m, r in zip(order, second):
