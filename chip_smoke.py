@@ -36,7 +36,10 @@ is missing.  Phases, each printing one JSON line:
    --max-rows 5000000 --device cuda`` in-process with ``--backend sweep``
    (PR and SCE), ``fused``, ``pallas`` and ``segment`` (PR, the plain
    cross-check, which ``--engine auto`` runs on the device engine; each run
-   prints its engine); reducts and cores equal, the Θ_PR history bit-equal,
+   prints its engine); a plain cross-check runs ``segment`` under
+   :func:`plain_segment`, its dense contingency and ``measures.evaluate``
+   on the card, as the CPU computes it, not its fused-kernel route; reducts
+   and cores equal, the Θ_PR history bit-equal,
    every kernel's launch count > 0 in that phase; then a small input
    (mushroom, 2,000 rows) on the card against the same driver on the CPU;
 5. the ``nvidia-smi`` line again, the ``{"kernels": [...]}`` line and, last,
@@ -107,16 +110,17 @@ card:
 
 11. service: (a) streaming — the first 2,500,000 rows submitted, then 4
     updates of 625,000 rows; after the submit and after each update, solo
-    PR queries on ``segment`` (device engine), ``sweep``, ``fused`` and
-    ``pallas`` (host loop: the three Θ kernels) with equal reducts and
-    bit-equal Θ_PR, then one window of 4 clients (PR, SCE, LCE, CCE)
+    PR queries on ``segment`` (device engine; plain, the answer), ``sweep``,
+    ``fused`` and ``pallas`` (host loop: the three Θ kernels) with equal
+    reducts and bit-equal Θ_PR, then one window of 4 clients (PR, SCE, LCE, CCE)
     served by one stacked dispatch; at the end every measure's answer, and
     every backend's, equals a batch ``plar_reduce`` over the full table,
     reduct and Θ history; (b) merge during capture — the engine's graphs
     released, dataset B's 4,000,000-row update merge and dataset A's
-    dispatch in one window: the merge span overlaps the dispatch span, the
-    device guard keeps the merge out of the capture, and both answers equal
-    their solo runs; (c) checkpoint and restart — ``stop()`` writes the
+    dispatch in one window, A's dispatch held until B's merge has begun
+    (so the two meet whatever either takes): the merge span overlaps the
+    dispatch span, the device guard keeps the merge out of the capture,
+    and both answers equal their solo runs; (c) checkpoint and restart — ``stop()`` writes the
     checkpoint, a new server restores both datasets and its first query is
     a warm repair with the same answer; (d) shard recovery —
     ``DatasetHandle.create_sharded`` with 4 shards at ``chunk_rows``
@@ -261,7 +265,7 @@ The paper slice adds, after phase 16 (before the ``kernels`` line):
     ``max_features`` 1, lanes 32 and 128, the second run timed), then the
     table granulated once on the card and one whole greedy PR reduction
     (``compute_core=False``, host loop) on ``segment`` (the plain answer,
-    first), ``sweep``, ``fused`` and ``pallas``: reducts equal, Θ_PR
+    under :func:`plain_segment`, first), ``sweep``, ``fused`` and ``pallas``: reducts equal, Θ_PR
     histories bit-equal, each kernel launched by its run; prints
     ``granulate_s``, ``elapsed_s``, iterations, launches and peak device
     memory; (c) the dry-run cell's shard steps
@@ -354,6 +358,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -651,10 +656,61 @@ def phase_kernels(torch, ops, ref, card: str) -> dict:
     return {"rows": rows}
 
 
+@contextlib.contextmanager
+def plain_segment():
+    """``segment`` as the plain answer on the card: candidates evaluated on
+    the dense ``[nc, n_bins, m]`` contingency and ``measures.evaluate``, the
+    CPU's arithmetic, instead of the fused kernel its row of
+    ``plan.BACKENDS`` names for the card (the table alone picks the route).
+    For the length of a reference run; no other thread runs a reduction
+    meanwhile."""
+    from repro_torch.core import plan
+
+    row = plan.BACKENDS["segment"]
+    plan.BACKENDS["segment"] = row._replace(card=None)
+    try:
+        yield
+    finally:
+        plan.BACKENDS["segment"] = row
+
+
+@contextlib.contextmanager
+def _held_until_merge(handle_a, handle_b, timeout_s: float = 300.0):
+    """Dataset A's reductions wait, inside their ``scheduler.dispatch``
+    span, until dataset B's merge has begun (its ``update``, called inside
+    the ``scheduler.merge`` span): the two spans meet whatever either takes.
+    Instance attributes over the handles' methods, removed on exit."""
+    begun = threading.Event()
+    update = handle_b.update
+
+    def signalled(*args, **kwargs):
+        begun.set()
+        return update(*args, **kwargs)
+
+    def held(fn):
+        def call(*args, **kwargs):
+            if not begun.wait(timeout_s):
+                raise AssertionError("dataset B's merge did not begin")
+            return fn(*args, **kwargs)
+        return call
+
+    handle_b.update = signalled
+    handle_a.reduce, handle_a.reduce_many = held(handle_a.reduce), held(handle_a.reduce_many)
+    try:
+        yield
+    finally:
+        del handle_b.update, handle_a.reduce, handle_a.reduce_many
+
+
+def plain_if_segment(backend: str):
+    """:func:`plain_segment` for a ``segment`` run, else nothing."""
+    return plain_segment() if backend == "segment" else contextlib.nullcontext()
+
+
 def run_cli(torch, reduce_cli, backend: str, delta: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), plain_if_segment(backend):
         out = reduce_cli.main(KDD99 + ["--backend", backend, "--delta", delta])
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
@@ -912,7 +968,8 @@ def phase_service(torch, obs, ops, x, d, stream, card: str) -> dict:
                 for b in cfg["backends"]:
                     before = tracer.recorded
                     t0 = time.perf_counter()
-                    r = await srv.query("kdd", "PR", backend=b)
+                    with plain_if_segment(b):         # segment: the plain answer
+                        r = await srv.query("kdd", "PR", backend=b)
                     req = srv.requests[-1]
                     solo[b] = dict(result=r, latency_s=time.perf_counter() - t0, warm=req.warm,
                                    prefix_kept=req.prefix_kept, captures=_captures(obs, before),
@@ -960,8 +1017,9 @@ def phase_service(torch, obs, ops, x, d, stream, card: str) -> dict:
             await srv.update("kdd_b", x[cfg["b_first"]:], d[cfg["b_first"]:])
             waits = (guard.capture_waits, guard.capture_wait_s, guard.shared_waits)
             before = tracer.recorded
-            ra, rb = await asyncio.gather(srv.query("kdd", "PR", backend="segment"),
-                                          srv.query("kdd_b", "PR", backend="segment"))
+            with _held_until_merge(srv.handle("kdd"), srv.handle("kdd_b")):
+                ra, rb = await asyncio.gather(srv.query("kdd", "PR", backend="segment"),
+                                              srv.query("kdd_b", "PR", backend="segment"))
             merges = [m for m in _new_spans(obs, before, "scheduler.merge")
                       if m.args["dataset"] == "kdd_b"]
             disp = [m for m in _new_spans(obs, before, "scheduler.dispatch")
@@ -2409,7 +2467,8 @@ def _sdss_table_11(torch, paper_tables, card: str) -> dict:
 def _sdss_reductions(torch, ops, plar_reduce, resolve_granularity, scaled_paper_dataset,
                      card: str) -> dict:
     """One whole greedy PR reduction of the full sdss stand-in on each
-    kernel backend and on ``segment`` (the plain-PyTorch answer)."""
+    kernel backend and on ``segment`` (the plain-PyTorch answer,
+    :func:`plain_segment`)."""
     x, d = scaled_paper_dataset("sdss", max_rows=SDSS["rows"], max_attrs=SDSS["attrs"]).table()
     if list(x.shape) != [SDSS["rows"], SDSS["attrs"]] or int(d.max()) + 1 != SDSS["classes"]:
         raise AssertionError(f"sdss table {list(x.shape)}, {int(d.max()) + 1} classes")
@@ -2428,8 +2487,9 @@ def _sdss_reductions(torch, ops, plar_reduce, resolve_granularity, scaled_paper_
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        r = plar_reduce(source=gran, delta="PR", backend=backend, engine="host",
-                        compute_core=False, device="cuda")
+        with plain_if_segment(backend):
+            r = plar_reduce(source=gran, delta="PR", backend=backend, engine="host",
+                            compute_core=False, device="cuda")
         torch.cuda.synchronize()
         run = dict(backend=backend, engine="host", reduct=r.reduct, iterations=r.iterations,
                    theta_full=r.theta_full, theta_history=r.theta_history,

@@ -38,11 +38,14 @@ loop's too): what each backend takes is read from ``plan.BACKENDS``.
 ``engine="auto"`` runs the plain backends (:data:`DEVICE_BACKENDS`) here, as
 the JAX engine runs only its XLA ones.  Asked for by name
 (``engine="device"``), the body also launches the CUDA kernels
-(:data:`KERNEL_BACKENDS`), whose launch shape is resolved once a runner
-(:func:`body_tiles`, outside the capture) and is part of the runner's key:
-a tuning persisted after a capture makes a new runner, captured anew, never
-a replay of the old tiles.  ``ladder=True`` is accepted and every body
-evaluates at the top rung ``cap · v_max``: the sweep epilogue is bit-identical at every rung ≥ K·V
+(:data:`KERNEL_BACKENDS`); on the card ``segment`` launches the fused Θ
+kernel (``plan.card_kernel``).  A kernel's launch shape is resolved once a
+runner (:func:`body_tiles`, outside the capture) and is part of the
+runner's key: a tuning persisted after a capture makes a new runner,
+captured anew, never a replay of the old tiles.  The dispatch spans count
+the kernel launches the replayed bodies held (``theta_launches``).
+``ladder=True`` is accepted and every body evaluates at the top rung
+``cap · v_max``: the sweep epilogue is bit-identical at every rung ≥ K·V
 (DESIGN.md §5.3), and the recorded Θ history comes from the advance, which
 keeps the full bound on every path.  A device-side rung choice (JAX's
 ``lax.switch`` on ``st.k``) has no counterpart in a CUDA graph.
@@ -86,6 +89,7 @@ from .plan import (
     KERNEL_BACKENDS,
     candidate_contingency,
     candidate_theta,
+    card_kernel,
     check_stacked,
     contingency_from_ids,
     ids_by_sort,
@@ -236,7 +240,7 @@ class _Cfg:
     m: int
     v_max: int
     mp_chunk: int        # candidates evaluated per inner step (memory bound)
-    tiles: Tuple[int, ...] = ()   # the body's kernel launch shape (KERNEL_BACKENDS), else ()
+    tiles: Tuple[int, ...] = ()   # the body's kernel launch shape (plan.card_kernel), else ()
     tol: Optional[float] = None   # the solo knobs; None in a stacked runner
     tie_tol: Optional[float] = None
     shrink: Optional[bool] = None
@@ -695,6 +699,15 @@ def release_graphs() -> None:
         torch.cuda.empty_cache()
 
 
+def _launches() -> int:
+    """Θ kernel launches made from Python so far (``ops.LAUNCHES``, all
+    three kernels); a graph's replays make none, so a captured body's are
+    counted once, at its capture."""
+    from repro_torch.kernels.contingency.ops import LAUNCHES
+
+    return sum(LAUNCHES.values())
+
+
 def _drive(body, done: torch.Tensor, max_bodies: int, period: int) -> Tuple[int, int]:
     """Run ``body`` until ``done`` reads set or ``max_bodies`` ran.
 
@@ -743,6 +756,7 @@ class _Loop:
         self.capture_s = 0.0
         self.last_bodies = 0
         self.last_polls = 0
+        self.last_launches = 0     # Θ kernel launches the last call's bodies held
 
     def _step(self, slot) -> None:
         new, done = self._body(slot["op"], slot["st"])
@@ -765,10 +779,12 @@ class _Loop:
             torch.cuda.current_stream().wait_stream(side)
             slot["st"].copy_(st_in)
             graph = torch.cuda.CUDAGraph()
+            launches0 = _launches()
             with torch.cuda.graph(graph, pool=_graph_pool(dev)):
                 self._step(slot)
             torch.cuda.synchronize()
         slot["graph"] = graph
+        slot["launches"] = _launches() - launches0
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
 
@@ -778,7 +794,8 @@ class _Loop:
         if slot is None:
             slot = self._slots[dev] = {
                 "op": op.clone(), "st": st.clone(),
-                "done": torch.zeros((), dtype=torch.bool, device=dev), "graph": None}
+                "done": torch.zeros((), dtype=torch.bool, device=dev), "graph": None,
+                "launches": 0}
         else:
             # copied in before every call: a graph replays what its buffers
             # hold, never the values of its first call
@@ -792,6 +809,7 @@ class _Loop:
         else:
             body = partial(self._step, slot)
         self.last_bodies, self.last_polls = _drive(body, slot["done"], max_bodies, POLL_PERIOD)
+        self.last_launches = slot["launches"] * self.last_bodies   # 0 on an eager slot
         return slot["st"].clone()
 
 
@@ -802,10 +820,11 @@ class _Loop:
 
 def body_tiles(backend: str, delta: str, n_attrs: int, cap: int, m: int, v_max: int,
                mp_chunk: int, selector: str, device=None) -> Tuple[int, ...]:
-    """The launch shape of the CUDA kernel a body launches, resolved for
-    ``device`` (the first candidate chunk's shape: every chunk takes it);
-    ``()`` for the plain backends, which launch none."""
-    kernel = KERNEL_BACKENDS.get(backend)
+    """The launch shape of the CUDA kernel a body launches on ``device``
+    (:func:`~.plan.card_kernel`), resolved for it (the first candidate
+    chunk's shape: every chunk takes it); ``()`` where the body launches
+    none."""
+    kernel = card_kernel(backend, device)
     if kernel is None:
         return ()
     from repro_torch.kernels.contingency.autotune import resolve_tiles
@@ -970,7 +989,9 @@ def run_engine(runner, cap: int, n_attrs: int, valid, x, d, w, n, theta_full: fl
     per_iteration_s)``; ``per_iteration_s`` holds one entry per executed
     body (``len(reduct)``, forced folds included), each the loop average.
     The ``engine.dispatch`` span records the bodies replayed, the ``done``
-    polls and the captures of the run.
+    polls, the captures of the run and the Θ kernel launches the replayed
+    bodies held (``theta_launches``; 0 on the CPU, where no body is
+    captured).
     """
     loop = runner.loop
     captures_before, capture_s_before = loop.captures, loop.capture_s
@@ -982,21 +1003,23 @@ def run_engine(runner, cap: int, n_attrs: int, valid, x, d, w, n, theta_full: fl
                 raise ValueError("warm_start replaces the core prefix")
             forced = list(warm_start)
             st = init_state_from_reduct(runner, cap, n_attrs, valid, x, d, w, n, forced)
-            bodies, polls = loop.last_bodies, loop.last_polls
+            bodies, polls, launches = loop.last_bodies, loop.last_polls, loop.last_launches
             fin = engine_resume(runner, st, x, d, w, n, theta_full)
         else:
             forced = list(core)
-            bodies = polls = 0
+            bodies = polls = launches = 0
             st = init_state(cap, n_attrs, valid, device=_device_of(x, valid))
             fin = runner(st, x, d, w, n, theta_full, _forced_attrs(n_attrs, forced), len(forced))
         bodies += loop.last_bodies
         polls += loop.last_polls
+        launches += loop.last_launches
         reduct, hist, iters, n_evals = unpack_result(fin, len(forced))
         loop_s = time.perf_counter() - t_loop
         compiled = loop.captures > captures_before
         sp.set(k=len(reduct), iterations=iters, compiled=compiled, bodies=bodies,
                polls=polls, captures=loop.captures - captures_before,
-               capture_s=loop.capture_s - capture_s_before, loop_s=loop_s)
+               capture_s=loop.capture_s - capture_s_before, loop_s=loop_s,
+               theta_launches=launches)
     obs.counter("plar_engine_runs_total",
                 "engine while_loop dispatch sequences completed").inc()
     if compiled:
@@ -1029,21 +1052,24 @@ def unpack_result(fin: SelectionState, core_count: int):
 
 def make_ensemble_run(mode: str, backend: str, deltas: Sequence[str], n_attrs: int, cap: int,
                       m: int, v_max: int, mp_chunk: int = 64, ladder: bool = False,
-                      selector: str = "analytic"):
+                      selector: str = "analytic", device=None):
     """The whole config grid as one loop (one capture per grid and device).
 
     Returns ``run(st_stack, x, d, ops) -> st_stack`` where every
     :class:`SelectionState` field carries a leading ``[len(deltas)]`` axis
     and ``ops`` is the :class:`EnsembleOperands` stack.  ``deltas`` names
-    each config's measure.
+    each config's measure.  A kernel the body launches on ``device`` takes
+    one launch shape for every member (:func:`body_tiles`, resolved for the
+    first measure: tiles change no bit), part of the runner's key.
     """
     check_stacked(backend, ladder)
     deltas = tuple(str(dd) for dd in deltas)
     bad = [dd for dd in deltas if dd not in ENSEMBLE_DELTAS]
     if bad:
         raise ValueError(f"unknown measures {bad} (one of: {', '.join(ENSEMBLE_DELTAS)})")
+    tiles = body_tiles(backend, deltas[0], n_attrs, cap, m, v_max, mp_chunk, selector, device)
     return _runner(_Cfg(deltas, str(mode), str(backend), int(n_attrs), int(cap), int(m),
-                        int(v_max), int(mp_chunk)))
+                        int(v_max), int(mp_chunk), tuple(int(t) for t in tiles)))
 
 
 def init_ensemble_state(cap: int, n_attrs: int, valid, n_cfgs: int, device=None) -> SelectionState:
@@ -1068,7 +1094,8 @@ def run_ensemble(runner, cap: int, n_attrs: int, valid, x, d, ops: EnsembleOpera
             torch.cuda.synchronize(fin.n_selected.device)   # the loop's time, not its enqueue
         sp.set(compiled=loop.captures > captures_before, bodies=loop.last_bodies,
                polls=loop.last_polls, captures=loop.captures - captures_before,
-               capture_s=loop.capture_s - capture_s_before)
+               capture_s=loop.capture_s - capture_s_before,
+               theta_launches=loop.last_launches)
     obs.counter("plar_engine_ensemble_runs_total",
                 "stacked-engine dispatches completed").inc()
     return fin, time.perf_counter() - t0

@@ -13,7 +13,10 @@ packages; :data:`BACKENDS` holds what the drivers need to know of each, and
 every backend tuple of the core is read from it:
 
 * ``segment`` / ``onehot`` — plain PyTorch (a scatter-add, a chunked one-hot
-  contraction): the JAX package computes these in XLA, not in Pallas.
+  contraction): the JAX package computes these in XLA, not in Pallas.  On
+  a CUDA operand ``segment`` evaluates candidates through the fused kernel
+  below (its ``Backend.card``), never the dense ``[nc, n_bins, m]``
+  contingency; on the CPU it keeps the JAX package's arithmetic.
 * ``pallas`` — the hand-written CUDA contingency kernel
   (``kernels/contingency/ops.contingency``); the name is the JAX package's.
 * ``fused`` — the CUDA fused contingency→Θ kernel (``ops.fused_theta``):
@@ -60,7 +63,9 @@ __all__ = [
     "MESH_BACKENDS",
     "SWEEP_BACKENDS",
     "SELECTOR_MODES",
+    "card_kernel",
     "check_backend",
+    "check_card_shape",
     "check_engine",
     "check_mode",
     "check_selector",
@@ -87,10 +92,11 @@ class Backend(NamedTuple):
     device: bool           # engine="auto" runs it on the device engine (JAX's rule)
     stacked: bool          # may ride the stacked engine: its measure splits off the contingency
     mesh: bool             # the mesh drivers evaluate it
+    card: Optional[str] = None  # the CUDA kernel a plain backend's candidates take on the card
 
 
 BACKENDS = {
-    "segment": Backend(None, slab=False, device=True, stacked=True, mesh=True),
+    "segment": Backend(None, slab=False, device=True, stacked=True, mesh=True, card="fused"),
     "onehot": Backend(None, slab=False, device=True, stacked=True, mesh=False),
     "pallas": Backend("contingency", slab=False, device=False, stacked=False, mesh=False),
     "fused": Backend("fused", slab=False, device=False, stacked=False, mesh=False),
@@ -106,6 +112,38 @@ ENSEMBLE_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.stacked)
 MESH_BACKENDS = tuple(b for b, e in BACKENDS.items() if e.mesh)
 MODES = ("incremental", "spark")
 ENGINES = ("auto", "host", "device")
+
+
+def card_kernel(backend: str, device=None) -> Optional[str]:
+    """The CUDA kernel a candidate evaluation on ``backend`` launches for
+    ``device`` (autotune's name), or ``None``: a kernel backend's on any
+    device, a plain backend's ``card`` kernel on a CUDA device only."""
+    entry = BACKENDS[backend]
+    on_card = device is not None and torch.device(device).type == "cuda"
+    return entry.kernel or (entry.card if on_card else None)
+
+
+def check_card_shape(backend: str, mode: str, device, *, n_attrs: int, cap: int, m: int,
+                     mp_chunk: int) -> None:
+    """Raise, before any launch or capture, where the fused kernel that
+    ``backend``'s candidates take on a CUDA ``device`` (:func:`card_kernel`)
+    cannot take a chunk of ``min(mp_chunk, n_attrs)`` candidates over
+    ``cap`` granule slots and ``m`` decisions (``ops.check_fused_shape``).
+
+    ``segment`` ran such tables on the card through its dense contingency
+    before it took the kernel there; it has no fallback to it now.  Spark
+    mode evaluates no candidate through the kernel.
+    """
+    if (mode == "spark" or torch.device(device).type != "cuda"
+            or card_kernel(backend, device) != "fused"):
+        return
+    from repro_torch.kernels.contingency.ops import check_fused_shape
+
+    try:
+        check_fused_shape(max(min(int(mp_chunk), int(n_attrs)), 1), int(cap), int(m), device)
+    except ValueError as e:
+        raise ValueError(f"backend {backend!r} evaluates candidates on the card with the "
+                         f"fused Θ kernel, which cannot take this table: {e}") from None
 
 
 def _check_in(what: str, value, allowed: Sequence[str]) -> None:
@@ -378,7 +416,10 @@ def candidate_theta(
 
     ``segment``/``onehot``/``pallas`` materialize the contingency and reduce
     it with :func:`measures.evaluate`; ``fused``/``fused_xla`` fold the θ
-    epilogue into the accumulation.  The sweep backends take the read-once
+    epilogue into the accumulation, and so does ``segment`` on a CUDA
+    operand, which launches the fused kernel (``BACKENDS["segment"].card``):
+    the same counts, Θ_PR the same bits, SCE/LCE/CCE summed in the kernel's
+    tile order.  The sweep backends take the read-once
     slab operands ``x_t [nc, G]`` + ``r_ids [G]`` + ``v_max`` instead of
     ``packed`` (pass ``packed=None``); ``n_bins`` may be any ladder rung
     ≥ K·V with bitwise-identical results across rungs.  The CUDA backends
@@ -386,6 +427,7 @@ def candidate_theta(
     of ``model.TILE_FIELDS``, or resolve them with ``selector``; tiles never
     change a bit.
     """
+    check_backend(backend)
     if backend in SWEEP_BACKENDS:
         if x_t is None or r_ids is None or v_max is None:
             raise ValueError(
@@ -400,7 +442,7 @@ def candidate_theta(
         cont = sweep_contingency(x_t, r_ids, d, w, valid, v_max=v_max,
                                  n_bins=n_bins, m=m)
         return measures.theta_scale(delta, theta_tiled_raw(delta, cont), n)
-    if backend == "fused":
+    if card_kernel(backend, packed.device) == "fused":
         from repro_torch.kernels.contingency.ops import fused_theta
 
         return fused_theta(packed, d, _masked_w(w, valid), n, delta=delta,
@@ -409,7 +451,6 @@ def candidate_theta(
     if backend == "fused_xla":
         cont = _cont_segment(packed, d, w, valid, n_bins, m)
         return measures.theta_scale(delta, theta_tiled_raw(delta, cont), n)
-    check_backend(backend)
     cont = candidate_contingency(packed, d, w, valid, n_bins=n_bins, m=m,
                                  backend=backend, selector=selector, tiles=tiles)
     return measures.evaluate(delta, cont, n)

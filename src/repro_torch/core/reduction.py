@@ -55,6 +55,7 @@ from .engine import (
     _advance,
     _Cfg,
     _eval_chunk,
+    _launches,
     _spark_thetas,
     make_ensemble_run,
     run_engine,
@@ -77,6 +78,7 @@ from .plan import (
     BACKENDS,
     DEVICE_BACKENDS,
     check_backend,
+    check_card_shape,
     check_engine,
     check_mode,
     check_selector,
@@ -141,12 +143,6 @@ def _counted_span(name: str, **attrs):
         r0 = host_reads()
         yield sp
         sp.set(host_reads=host_reads() - r0)
-
-
-def _launches() -> int:
-    """CUDA Θ kernel launches so far in this process (all three kernels)."""
-    from repro_torch.kernels.contingency.ops import LAUNCHES
-    return sum(LAUNCHES.values())
 
 
 def raw_granularity(x, d, *, n_dec: int, v_max: int,
@@ -442,6 +438,15 @@ def plar_reduce(
     back empty) and, on the device engine, runs as a seed + resume pair of
     calls of the same runner (one capture).  ``max_features`` caps only
     further greedy additions.
+
+    On a CUDA ``device``, ``segment`` (the default) evaluates candidates
+    with the fused Θ kernel, not the dense ``[nc, n_bins, m]`` contingency
+    it keeps on the CPU, and so takes the kernel's limits: a table of more
+    than 226 decision classes (a 256-bin tile's histogram past an H100
+    block's shared memory) or a candidate chunk of ``min(mp_chunk, A) ·
+    capacity`` ≥ 2³¹ keys is refused before the first launch
+    (:func:`~.plan.check_card_shape`), where the dense path ran it; and
+    Θ_PR is bit-equal to the CPU's only below 2²⁴ rows.
     """
     t0 = time.perf_counter()
     check_mode(mode)
@@ -454,6 +459,8 @@ def plar_reduce(
             x, d, source=source, grc_init=grc_init, n_dec=n_dec, v_max=v_max,
             exact=exact, chunk_rows=chunk_rows, device=device)
         A = gran.n_attrs
+        check_card_shape(backend, mode, gran.device, n_attrs=A, cap=gran.capacity,
+                         m=gran.n_dec, mp_chunk=mp_chunk)
         n_evals = 0
 
         warm: Optional[List[int]] = None
@@ -755,7 +762,8 @@ def plar_reduce_ensemble(
     its solo twin is ``plar_reduce`` on the same granularity with ``w``
     replaced) and ``warm_start`` (a forced prefix replacing the core).
     Shared knobs (``mode``, ``backend``, ``ladder``, ``mp_chunk``) are
-    static choices of the runner.
+    static choices of the runner.  On the card ``segment`` takes the fused
+    Θ kernel's limits, as in :func:`plar_reduce`.
 
     Results come back in grid order (``configs`` × ``seeds``); ``elapsed_s``
     is the per-config share of the wall clock, and ``per_iteration_s``
@@ -774,6 +782,7 @@ def plar_reduce_ensemble(
     A = gran.n_attrs
     m = gran.n_dec
     cap = gran.capacity
+    check_card_shape(backend, mode, dev, n_attrs=A, cap=cap, m=m, mp_chunk=mp_chunk)
     C = len(cfgs)
     deltas = [c["delta"] for c in cfgs]
 
@@ -834,8 +843,8 @@ def plar_reduce_ensemble(
             core_attrs=torch.as_tensor(core_attrs, device=dev),
             core_count=torch.as_tensor(core_counts, device=dev),
         )
-        runner = make_ensemble_run(mode, backend, deltas, A, cap, m,
-                                   gran.v_max, int(mp_chunk), bool(ladder), str(selector))
+        runner = make_ensemble_run(mode, backend, deltas, A, cap, m, gran.v_max, int(mp_chunk),
+                                   bool(ladder), str(selector), device=dev)
         fin, loop_s = run_ensemble(runner, cap, A, gran.valid, gran.x, gran.d, ops)
         per_cfg = unpack_ensemble_result(fin, core_counts)
         sp.set(bodies=runner.loop.last_bodies)

@@ -57,7 +57,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.plan import SELECTOR_MODES, check_selector
-from repro_torch.launch.roofline import DeviceSpec, device_spec
+from repro_torch.cards import DeviceSpec, device_spec
 
 from .model import (
     CANDIDATE_BC,

@@ -57,7 +57,7 @@ import math
 from functools import lru_cache
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
-from repro_torch.launch.roofline import H100_SXM, DeviceSpec
+from repro_torch.cards import H100_SXM, DeviceSpec
 
 __all__ = [
     "KernelCost",

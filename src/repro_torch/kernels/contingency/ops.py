@@ -32,14 +32,15 @@ from .autotune import check_selector, resolve_tiles
 from .model import TILE_FIELDS
 from .ref import contingency_ref, fused_theta_raw_ref, sweep_theta_ref
 
-__all__ = ["LAUNCHES", "contingency", "fused_theta", "fused_theta_raw", "sweep_theta",
-           "launch_tiles", "reset_launch_counts", "launch_counts", "resolve_tiles",
+__all__ = ["LAUNCHES", "check_fused_shape", "contingency", "fused_theta", "fused_theta_raw",
+           "sweep_theta", "launch_tiles", "reset_launch_counts", "launch_counts", "resolve_tiles",
            "theta_scale"]
 
 LAUNCHES: Dict[str, int] = {"contingency": 0, "fused_theta": 0, "sweep_theta": 0}
 
 _DELTA_CODE = {"PR": 0, "SCE": 1, "LCE": 2, "CCE": 3}
 _TILE = 256  # bins per CTA of the Θ kernels (plan.LADDER_TILE)
+_INT_MAX = 2**31 - 1
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
@@ -121,6 +122,17 @@ def _check_smem(name: str, n_dec: int, device: torch.device) -> None:
             f"bytes of shared memory; a block may take {limit}")
 
 
+def check_fused_shape(nc: int, g: int, n_dec: int, device) -> None:
+    """Raise where :func:`fused_theta` on ``device`` cannot take ``nc``
+    candidates over ``g`` granule slots and ``n_dec`` decisions: ``nc·g``
+    keys past an int32, or a 256-bin tile's histogram and row values past
+    a block's shared memory."""
+    if nc * g > _INT_MAX:
+        raise ValueError(f"fused_theta: {nc} candidates x {g} granules are {nc * g} keys; "
+                         f"the kernel takes at most {_INT_MAX}")
+    _check_smem("fused_theta", n_dec + 1, torch.device(device))
+
+
 def contingency(
     packed: torch.Tensor,  # [nc, G] int32
     d: torch.Tensor,       # [G] int32
@@ -191,7 +203,7 @@ def fused_theta_raw(
     if n_bins < 1:
         raise ValueError(f"fused_theta: n_bins must be >= 1, got {n_bins}")
     dev = d.device
-    _check_smem("fused_theta", n_dec + 1, dev)  # a histogram row and a row value a bin
+    check_fused_shape(nc, g, n_dec, dev)
     raw = torch.empty((nc,), dtype=torch.float32, device=dev)
     if nc == 0:
         return raw

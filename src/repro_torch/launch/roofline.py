@@ -1,20 +1,10 @@
 """Roofline terms and the card's figures: the port's counterpart of
 ``repro.launch.roofline``.
 
-The one home of the GPU's constants.  :class:`DeviceSpec` holds them as one
-frozen record:
-
-* from ``torch.cuda.get_device_properties``: SMs, shared memory a block may
-  opt in to and an SM holds, registers and threads an SM holds, L2 bytes;
-* from a table keyed by the device name (NVIDIA's data sheets): device
-  memory bytes/s, float32 (outside the tensor cores) and bf16 (tensor
-  cores, dense) operations/s, and NVLink bytes/s each way.
-
-:func:`device_spec` reads them for a CUDA device; for the CPU (and with no
-device) it returns :data:`H100_SXM`, a fixed spec, so a model that ranks
-with it is a pure function of its shapes on every machine.  The Θ kernels'
-cost model (:mod:`repro_torch.kernels.contingency.model`) and
-``chip_smoke.py``'s bounds both read their rates here.
+The card's figures (:class:`DeviceSpec`, :data:`H100_SXM`,
+:func:`device_spec`) live in :mod:`repro_torch.cards`, which imports torch
+alone, and are re-exported here; ``chip_smoke.py``'s bounds read them from
+either.
 
 Three terms per step, as in the JAX package:
 
@@ -56,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from functools import lru_cache
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -66,6 +55,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.cards import H100_SXM, H200_SXM, DeviceSpec, device_spec
 from repro_torch.kernels.launching import add_sink, remove_sink
 
 __all__ = [
@@ -89,89 +79,10 @@ __all__ = [
 ]
 
 
-@dataclasses.dataclass(frozen=True)
-class DeviceSpec:
-    """What one card offers the cost model and the bounds."""
-
-    name: str
-    sms: int
-    smem_per_block: int        # bytes a block may opt in to (dynamic + static)
-    smem_per_sm: int           # bytes an SM holds for its resident blocks
-    regs_per_sm: int           # 32-bit registers an SM holds
-    threads_per_sm: int
-    l2_bytes: int
-    hbm_bytes_per_s: float     # device memory
-    f32_ops_per_s: float       # float32 outside the tensor cores
-    bf16_ops_per_s: float      # bf16 tensor cores, dense
-    nvlink_bytes_per_s: float  # to another card, each way
-    threads_per_block: int = 1024
-    blocks_per_sm: int = 32
-    smem_reserved_per_block: int = 1024   # the runtime's share of each block's shared memory
-
-    def peak_ops(self, dtype: str) -> float:
-        if dtype == "f32":
-            return self.f32_ops_per_s
-        if dtype == "bf16":
-            return self.bf16_ops_per_s
-        raise ValueError(f"unknown operand type {dtype!r} (one of: f32, bf16)")
-
-
-# NVIDIA's data sheets, SXM parts, dense rates at the 700 W limit.
-H100_SXM = DeviceSpec(
-    name="NVIDIA H100 SXM", sms=132, smem_per_block=232_448, smem_per_sm=233_472,
-    regs_per_sm=65_536, threads_per_sm=2_048, l2_bytes=50 * 1024 * 1024,
-    hbm_bytes_per_s=3.35e12, f32_ops_per_s=67e12, bf16_ops_per_s=989e12,
-    nvlink_bytes_per_s=450e9)
-H200_SXM = dataclasses.replace(H100_SXM, name="NVIDIA H200 SXM", hbm_bytes_per_s=4.8e12)
-
-# Device-name table: the first entry whose every word is in the name.  An
-# H100 that is not the SXM part (PCIe, NVL) has other rates: not listed.
-_RATES = (
-    (("H200",), H200_SXM),
-    (("H100", "HBM3"), H100_SXM),
-)
-
 PEAK_FLOPS = H100_SXM.bf16_ops_per_s
 PEAK_FLOPS_F32 = H100_SXM.f32_ops_per_s
 HBM_BW = H100_SXM.hbm_bytes_per_s
 NVLINK_BW = H100_SXM.nvlink_bytes_per_s
-
-
-def device_spec(device=None) -> DeviceSpec:
-    """The figures of ``device``: a CUDA device's own properties and the
-    rates of its name, or :data:`H100_SXM` for the CPU and for ``None``.
-
-    A CUDA card missing from the rate table raises: its rates are unknown,
-    and a bound or a model built on another card's would be wrong.
-    """
-    import torch
-
-    if device is None:
-        return H100_SXM
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return H100_SXM
-    return _cuda_spec(torch.cuda.current_device() if dev.index is None else dev.index)
-
-
-@lru_cache(maxsize=None)
-def _cuda_spec(index: int) -> DeviceSpec:
-    """Card ``index``'s spec, read once: the tile selector asks at every launch."""
-    import torch
-
-    props = torch.cuda.get_device_properties(index)
-    name = props.name
-    rates = next((spec for words, spec in _RATES if all(w in name for w in words)), None)
-    if rates is None:
-        raise ValueError(f"no rates for the card {name!r}: the roofline table lists "
-                         f"{[spec.name for _, spec in _RATES]}")
-    return dataclasses.replace(
-        rates, name=name, sms=props.multi_processor_count,
-        smem_per_block=getattr(props, "shared_memory_per_block_optin", rates.smem_per_block),
-        smem_per_sm=getattr(props, "shared_memory_per_multiprocessor", rates.smem_per_sm),
-        regs_per_sm=getattr(props, "regs_per_multiprocessor", rates.regs_per_sm),
-        threads_per_sm=getattr(props, "max_threads_per_multi_processor", rates.threads_per_sm),
-        l2_bytes=getattr(props, "L2_cache_size", rates.l2_bytes))
 
 
 def roofline_terms(flops_dev: float, bytes_dev: float, wire_bytes_dev: float, *,

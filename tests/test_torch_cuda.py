@@ -37,6 +37,13 @@ operands are copied into the graph's buffers, never baked in), a seed with
 ``theta_full = +inf`` then a resume equals the cold run, and each ensemble
 member equals its solo run.
 
+``segment`` on the card evaluates candidates through the fused kernel: one
+``fused_theta`` launch a chunk, the CPU path's Θ within 1e-6·max(1, |Θ|)
+(and the tolerance above), Θ_PR bit for bit; a stacked body of the four
+measures at kdd99's shape grows the card's reserved memory by less than one
+dense candidate contingency, and its dispatch span counts the launches the
+replayed bodies held.
+
 The online service on the card: an engine capture with a merge running on
 another thread (the device guard keeps the merge out of the capture; both
 answers equal their solo runs), a timed-out dispatch whose retry adopts the
@@ -358,7 +365,7 @@ def test_device_engine_one_capture_and_fresh_operands(cuda_device):
     kw = dict(delta="SCE", grc_init=False, device=cuda_device)
     r1 = plar_reduce(x1, d1, engine="device", **kw)
     runner = engine.make_engine_run("SCE", "incremental", "segment", 10, 3000, 3, 4, 1e-6,
-                                    1e-5, False, 10, 64)
+                                    1e-5, False, 10, 64, device=cuda_device)
     assert runner.loop.captures == 1
     r2 = plar_reduce(x2, d2, engine="device", **kw)
     assert runner.loop.captures == 1
@@ -371,7 +378,7 @@ def test_device_engine_seed_then_resume_equals_cold(cuda_device):
     cold = plar_reduce(x, d, delta="PR", engine="device", compute_core=False,
                        grc_init=False, device=cuda_device)
     runner = engine.make_engine_run("PR", "incremental", "segment", 10, 3000, 3, 4, 1e-6,
-                                    1e-5, False, 10, 64)
+                                    1e-5, False, 10, 64, device=cuda_device)
     xs, ds = torch.as_tensor(x, device=cuda_device), torch.as_tensor(d, device=cuda_device)
     ws = torch.ones(3000, dtype=torch.int32, device=cuda_device)
     valid = torch.ones(3000, dtype=torch.bool, device=cuda_device)
@@ -394,6 +401,93 @@ def test_ensemble_members_equal_solo_on_card(cuda_device, backend):
     for c, r in zip(grid, ens):
         assert _same(r, plar_reduce(x, d, engine="device", backend=backend,
                                     device=cuda_device, **c)), c
+
+
+@pytest.mark.parametrize("delta", DELTAS)
+def test_segment_candidate_theta_on_card_launches_fused(cuda_device, delta):
+    """``segment`` on CUDA operands is the fused kernel's route: one launch,
+    no other kernel, the CPU path's Θ (the dense contingency and
+    ``measures.evaluate``) within 1e-6·max(1, |Θ|), Θ_PR bit for bit; with
+    padding keys (r = -1), zero weights and invalid granules."""
+    v, k, m = 10, 3000, 23
+    x_t, r, d, w = _operands(cuda_device, 41, nc=9, g=20_000, v=v, k=k, m=m)
+    packed = (r[None, :] * v + x_t).contiguous()
+    valid = r >= 0
+    valid[1000:1300] = False                          # live keys and weights, not valid
+    n = torch.where(valid, w, 0).sum().to(torch.int32)
+    args = (packed, d, w, valid, n)
+    kw = dict(n_bins=k * v, m=m, backend="segment")
+    ops.reset_launch_counts()
+    got = candidate_theta(delta, *args, **kw).cpu()
+    assert ops.launch_counts() == {"contingency": 0, "fused_theta": 1, "sweep_theta": 0}
+    want = candidate_theta(delta, *(t.cpu() for t in args), **kw)
+    if delta == "PR":
+        assert torch.equal(got, want)
+    else:
+        gap = (got.double() - want.double()).abs() / want.double().abs().clamp(min=1.0)
+        assert float(gap.max()) <= 1e-6
+        _close(delta, got, want)
+
+
+def test_stacked_body_at_kdd99_shape_holds_no_dense_contingency(cuda_device):
+    """The four measures' stacked body on ``segment`` at kdd99's shape (41
+    candidates, cap·V 1,310,720 bins, 23 decisions): its warm-up and capture
+    grow the card's reserved memory (the graph pool included) by less than
+    one dense candidate contingency, 41·1,310,720·23·4 bytes; the launch
+    shape is resolved before the capture; the ``engine.dispatch_ensemble``
+    span counts the fused launches the replayed bodies held."""
+    cap, a, v, m, c = 131_072, 41, 10, 23, 4
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randint(0, v, (cap, a), generator=gen, dtype=torch.int32)
+    d = torch.randint(0, m, (cap,), generator=gen, dtype=torch.int32)
+    w = torch.randint(1, 60, (cap,), generator=gen, dtype=torch.int32)
+    valid = torch.arange(cap) < 99_700                # kdd99's live granules
+    w[~valid] = 0
+    ens = engine.EnsembleOperands(
+        tol=torch.full((c,), 1e-6), tie_tol=torch.full((c,), 1e-5),
+        max_sel=torch.full((c,), 3, dtype=torch.int32), shrink=torch.zeros(c, dtype=torch.bool),
+        theta_full=torch.full((c,), -10.0), n=torch.full((c,), int(w.sum()), dtype=torch.int32),
+        w=w.expand(c, cap).contiguous(), core_attrs=torch.zeros((c, a), dtype=torch.int32),
+        core_count=torch.zeros((c,), dtype=torch.int32))
+    engine.release_graphs()
+    runner = engine.make_ensemble_run("incremental", "segment", DELTAS, a, cap, m, v, 64,
+                                      device=cuda_device)
+    assert runner.cfg.tiles and runner.loop.captures == 0
+    x, d, valid = x.to(cuda_device), d.to(cuda_device), valid.to(cuda_device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(cuda_device)
+    obs.enable()
+    try:
+        fin, _loop_s = engine.run_ensemble(runner, cap, a, valid, x, d, ens)
+        span = next(r for r in reversed(obs.get_tracer().records())
+                    if r.name == "engine.dispatch_ensemble")
+    finally:
+        obs.disable()
+    grown = torch.cuda.memory_reserved(cuda_device) - before
+    assert grown < a * cap * v * m * 4, grown
+    assert fin.n_selected.tolist() == [3] * c and runner.loop.captures == 1
+    assert runner.loop.last_launches == c * span.args["bodies"]   # one chunk of 41 a member
+    assert span.args["theta_launches"] == c * span.args["bodies"] > 0
+    engine.release_graphs()
+
+
+@pytest.mark.parametrize("ensemble", [False, True])
+def test_segment_refuses_up_front_what_the_fused_kernel_cannot_take(cuda_device, ensemble):
+    """A table of 230 decision classes passes a 256-bin tile's shared memory
+    on the card: ``segment`` refuses it after granulation, before any
+    launch or capture, naming the kernel; the CPU runs it on the dense
+    path."""
+    rng = np.random.default_rng(230)
+    x = rng.integers(0, 3, (600, 4)).astype(np.int32)
+    d = (np.arange(600) % 230).astype(np.int32)
+    run = ((lambda dev: plar_reduce_ensemble(x, d, configs=DELTAS, device=dev)) if ensemble
+           else (lambda dev: plar_reduce(x, d, delta="SCE", device=dev)))
+    engine.release_graphs()
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="fused Θ kernel.*shared memory"):
+        run(cuda_device)
+    assert sum(ops.launch_counts().values()) == 0
+    assert run("cpu")
 
 
 # ---------------------------------------------------------------------------

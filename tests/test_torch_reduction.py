@@ -319,7 +319,7 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "import repro_torch, repro_torch.core, repro_torch.kernels.contingency\n"
         "import repro_torch.core.engine, repro_torch.launch.time_engine\n"
         "import repro_torch.kernels.contingency.autotune, repro_torch.kernels.contingency.model\n"
-        "import repro_torch.launch.roofline, repro_torch.launch.time_tiles\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.time_tiles, repro_torch.cards\n"
         "from repro_torch.launch import paper_tables, dryrun, report\n"
         "rows = paper_tables.table_11(max_rows=60, max_attrs=8, device='cpu')\n"
         "assert [r['lanes'] for r in rows] == [32, 128]\n"
