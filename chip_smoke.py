@@ -1146,7 +1146,7 @@ def _mesh_run(torch, obs, fn, **kw) -> dict:
     schedule's iterations and fallbacks, the engine that ran, and its span:
     ``engine.dispatch`` (device engine) or ``mesh.loop`` (host loop, whose
     collectives all run from Python: the loop's bytes an iteration, the
-    one-time gathers of the core and Θ(D|C) left out)."""
+    core's folds in, the one-time gathers of the core and Θ(D|C) left out)."""
     names = ("plar_mesh_fused_iterations_total", "plar_mesh_fused_fallbacks_total")
     before_c = [obs.counter(n).value for n in names]
     before = obs.get_tracer().recorded
@@ -1230,7 +1230,7 @@ def phase_distributed(torch, obs, ops, x, d, main_runs, card: str) -> dict:
         del gran
         runs.append(_mesh_run(torch, obs, plar_reduce_distributed, x=x, d=d, mesh=mesh,
                               delta="PR", collective="all_reduce", engine="auto"))
-        runs[-1]["input"] = "x, d (GrC built on the card by _grc_build_step)"
+        runs[-1]["input"] = "x, d (GrC built on the card, one build a shard)"
         scatter = _reduce_scatter_check(torch, _MeshColl(mesh))
         elapsed = time.perf_counter() - t0
         torch.cuda.synchronize()

@@ -70,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs
+from repro_torch.device import host_float, host_int, to_host
 
 from . import measures
 from .engine import (
@@ -96,10 +97,11 @@ from .reduction import (
     ReductionResult,
     _check_source_args,
     _core_inner_thetas,
+    _counted_span,
     _materialize,
 )
 
-__all__ = ["plar_reduce_distributed", "shard_decision_table"]
+__all__ = ["plar_reduce_distributed", "partition_rows"]
 
 
 def _host(a, dtype):
@@ -175,8 +177,10 @@ def _advance_step(mesh, delta: str, n_bins: int, m: int, v_max: int):
     return step
 
 
-# The device engine evaluates every body at its top rung, cap·V bins, so a
-# body's candidate contingency is [A_loc, cap·V, m] f32 whatever K is; the
+# The device engine evaluates every body at its top rung, cap·V bins (cap the
+# mesh's whole granule capacity: the per-shard capacity × n_data, which GrC
+# on a row-partitioned table leaves at the shard's row count), so a body's
+# candidate contingency is [A_loc, cap·V, m] f32 whatever K is; the
 # measures' temporaries, the reduce_scatter's bin-major copy and the graph's
 # pool take several more of that size (chip_smoke.py phase 9 on an H100:
 # segment/SCE peaked at 32.3 GB beside a 4.9 GB contingency).
@@ -199,8 +203,11 @@ def _resolve_engine(engine: str, collective: str, mesh, a_loc: int, cap: int, v_
     that ``auto`` takes the host loop where the device engine's static
     working set (:data:`ENGINE_WORKSET_FACTOR` contingencies of ``[a_loc,
     cap·V, m]`` f32) exceeds the smallest budget over the world's ranks, so
-    every rank picks the same engine.  On an x, d table ``cap`` is the
-    shard's row count, which no card holds at kdd99's 5,000,000 rows."""
+    every rank picks the same engine.  ``cap`` is the mesh's whole granule
+    capacity, the per-shard capacity × ``n_data``: on an x, d table (whole or
+    handed over as partitions) GrC keeps each shard's table at its padded
+    row count, so ``cap`` is the table's rows rounded up to ``n_data``
+    shards (5,000,000 at kdd99: ~1.5 TB of working set, the host loop)."""
     if engine != "auto":
         return engine
     if collective == "fused":
@@ -219,30 +226,51 @@ def _resolve_engine(engine: str, collective: str, mesh, a_loc: int, cap: int, v_
 # ---------------------------------------------------------------------------
 
 
-def shard_decision_table(x, d, mesh):
-    """This rank's rows of the table, padded to a multiple of the data-shard
-    count (the HDFS load): ``(x [n_pad/nd, A], d, valid)`` on the mesh's
-    device."""
-    nd = mesh.n_data
-    x, d = _host(x, np.int32), _host(d, np.int32)
-    n, a = x.shape
-    cps = -(-n // nd)
-    lo, hi = mesh.data_index * cps, min((mesh.data_index + 1) * cps, n)
-    xp = np.zeros((cps, a), np.int32)
-    dp = np.zeros((cps,), np.int32)
-    vp = np.zeros((cps,), bool)
-    if hi > lo:
-        xp[: hi - lo], dp[: hi - lo], vp[: hi - lo] = x[lo:hi], d[lo:hi], True
-    dev = mesh.device
-    return (torch.from_numpy(xp).to(dev), torch.from_numpy(dp).to(dev),
-            torch.from_numpy(vp).to(dev))
+def partition_rows(n_rows: int, mesh):
+    """The rows ``[lo, hi)`` of an ``n_rows`` table that this rank's data
+    shard holds: contiguous blocks of ``ceil(n_rows / n_data)`` rows, the
+    last one short (the HDFS load).  A whole table handed to
+    :func:`plar_reduce_distributed` is split so."""
+    cps = -(-n_rows // mesh.n_data)
+    lo = min(mesh.data_index * cps, n_rows)
+    return lo, min(lo + cps, n_rows)
+
+
+def _agree_partition(x, d, mesh, n_dec: Optional[int], v_max: Optional[int]):
+    """This rank's own rows ``x [n_loc, A], d`` as a shard of the whole
+    table, on the mesh's device: ``(x, d, valid, n_rows, n_dec, v_max)``,
+    padded to the largest shard's row count.  One all-reduce (max) over the
+    data group agrees on every shard's row count and, where not given, on
+    ``n_dec`` and ``v_max``; no row leaves its card."""
+    dev, nd = mesh.device, mesh.n_data
+    x = x.to(dev, torch.int32)
+    d = d.to(dev, torch.int32)
+    n_loc = x.shape[0]
+    agreed = torch.zeros((nd + 2,), dtype=torch.int64, device=dev)
+    agreed[mesh.data_index] = n_loc
+    if n_loc:
+        if n_dec is None:
+            agreed[nd] = d.max() + 1
+        if v_max is None:
+            agreed[nd + 1] = x.max() + 1
+    if mesh.data_axes:
+        _MeshColl._count(agreed)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=mesh.data_group)
+    h = to_host(agreed).numpy()
+    cps = int(h[:nd].max())
+    if n_loc < cps:
+        x = torch.cat([x, x.new_zeros((cps - n_loc, x.shape[1]))])
+        d = torch.cat([d, d.new_zeros((cps - n_loc,))])
+    valid = torch.arange(cps, device=dev) < n_loc
+    return (x, d, valid, int(h[:nd].sum()), int(h[nd]) if n_dec is None else n_dec,
+            int(h[nd + 1]) if v_max is None else v_max)
 
 
 def _gather_ints(mesh, values) -> np.ndarray:
     """One small int64 vector from every data shard, ``[nd, len(values)]``,
     the same on every rank."""
     t = torch.tensor(values, dtype=torch.int64, device=mesh.device)
-    return _MeshColl(mesh).gather_data(t).reshape(-1, len(values)).cpu().numpy()
+    return to_host(_MeshColl(mesh).gather_data(t).reshape(-1, len(values))).numpy()
 
 
 def _granularity_from_source(source, mesh, *, n_dec: int, v_max: int, chunk_rows: int):
@@ -250,8 +278,8 @@ def _granularity_from_source(source, mesh, *, n_dec: int, v_max: int, chunk_rows
 
     Each data shard folds its slice of every chunk through the streaming
     monoid merge, so peak host memory is O(chunk + per-shard granularity
-    capacity) instead of the full ``(n_rows, n_attrs)`` array that
-    ``shard_decision_table`` + ``_grc_build_step`` stage.  Every rank
+    capacity) instead of the full ``(n_rows, n_attrs)`` array that an x, d
+    call holds.  Every rank
     materializes each chunk once and keeps its slice (the ``TokenStream.shard``
     partition).  Cross-shard duplicate keys are allowed — the contingency sum
     is key-additive (module docstring) — so shards granulate independently,
@@ -296,22 +324,6 @@ def _granularity_to_mesh(gran: Granularity, mesh):
     return g.x, g.d, g.w, g.valid, int(gran.n_total)
 
 
-def _grc_build_step(mesh, n_dec: int, v_max: int, capacity: int):
-    """Per-shard GrC initialization (paper lines 1–2).  No cross-shard dedup:
-    duplicate keys across shards are weight-additive (module docstring).
-    Returns ``step(x, d, valid) -> (x, d, w, valid, num, n_total)`` with the
-    last two summed over the data shards."""
-    coll = _MeshColl(mesh)
-
-    def step(x, d, valid):
-        g = build_granularity(x, d, n_dec=n_dec, v_max=v_max, valid=valid, exact=True,
-                              capacity=capacity)
-        return (g.x, g.d, g.w, g.valid, coll.psum_data(g.num.reshape(1))[0],
-                coll.psum_data(g.n_total.reshape(1))[0])
-
-    return step
-
-
 # ---------------------------------------------------------------------------
 # class-grouped placement for the fused schedule
 # ---------------------------------------------------------------------------
@@ -337,8 +349,8 @@ def _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh):
         return gx, gd, gw, gvalid, r_ids
     coll = _MeshColl(mesh)
     cps = gx.shape[0]
-    vh = coll.gather_data(gvalid.to(torch.int32)).cpu().numpy().astype(bool)
-    rh = coll.gather_data(r_ids).cpu().numpy()
+    vh = to_host(coll.gather_data(gvalid.to(torch.int32))).numpy().astype(bool)
+    rh = to_host(coll.gather_data(r_ids)).numpy()
     live = np.nonzero(vh)[0]
     classes, inverse, counts = np.unique(
         rh[live], return_inverse=True, return_counts=True)
@@ -352,9 +364,9 @@ def _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh):
         assign[ci] = s
         loads[s] += counts[ci]
 
-    xh = coll.gather_data(gx).cpu().numpy()
-    dh = coll.gather_data(gd).cpu().numpy()
-    wh = coll.gather_data(gw).cpu().numpy()
+    xh = to_host(coll.gather_data(gx)).numpy()
+    dh = to_host(coll.gather_data(gd)).numpy()
+    wh = to_host(coll.gather_data(gw)).numpy()
     rows = live[assign[inverse] == mesh.data_index]
     nx = np.zeros((cps,) + xh.shape[1:], xh.dtype)
     nd_ = np.zeros((cps,), dh.dtype)
@@ -378,6 +390,7 @@ def plar_reduce_distributed(
     d=None,
     mesh=None,
     *,
+    partition: bool = False,            # x, d: this rank's own rows, on mesh.device
     source=None,                        # Granularity | GranuleSource (alt. to x, d)
     chunk_rows: int = 65536,            # streaming-ingestion chunk size
     delta: str = "PR",
@@ -400,7 +413,15 @@ def plar_reduce_distributed(
     Every rank of the mesh's world calls this with the same arguments (the
     whole table, or the same source) and gets the same result; ``mesh``
     (:func:`repro_torch.distributed.api.make_mesh`) names this rank's
-    device and groups.
+    device and groups.  With ``partition=True`` each rank instead hands
+    over its data shard's own rows ``x, d``, already on ``mesh.device``, as a
+    deployment caches its partitions there (the ranks of one model group
+    hand over the same rows): no table goes through the host and no rank
+    copies another's rows.  One small all-reduce agrees on the row count
+    and the per-shard capacity (a whole table is split by
+    :func:`partition_rows` and takes the same path, so rows handed over as
+    it splits them give the whole table's result bit for bit).  The
+    result's ``granules`` is this rank's granule table.
     """
     t0 = time.perf_counter()
     if collective not in ("all_reduce", "reduce_scatter", "fused"):
@@ -422,6 +443,8 @@ def plar_reduce_distributed(
     if mesh is None:
         raise ValueError("mesh is required")
     _check_source_args(x, d, source)
+    if partition and source is not None:
+        raise ValueError("partition=True takes this rank's rows as x, d, not a source")
     nd, nm = mesh.n_data, mesh.n_model
     coll = _MeshColl(mesh)
     dev = mesh.device
@@ -448,45 +471,51 @@ def plar_reduce_distributed(
         gx, gd, gw, gvalid, _ = _granularity_from_source(
             source, mesh, n_dec=n_dec, v_max=v_max, chunk_rows=chunk_rows)
     else:
-        x = _host(x, np.int32)
-        d = _host(d, np.int32)
-        if n_dec is None:
-            n_dec = int(d.max()) + 1
-        if v_max is None:
-            v_max = int(x.max()) + 1
-        n_rows, A = x.shape
-        xs, ds, vs = shard_decision_table(x, d, mesh)
-        cap_per_shard = xs.shape[0]
-        if grc_init:
-            build = _grc_build_step(mesh, n_dec, v_max, cap_per_shard)
-            gx, gd, gw, gvalid, _g_num, _n_total = build(xs, ds, vs)
-        else:
-            gx, gd = xs, ds
-            gw = torch.ones((cap_per_shard,), dtype=torch.int32, device=dev)
-            gvalid = vs
+        with _counted_span("mesh.granulate") as sp:
+            if not partition:               # the whole table: keep this shard's rows
+                x, d = _host(x, np.int32), _host(d, np.int32)
+                lo, hi = partition_rows(x.shape[0], mesh)
+                x, d = torch.from_numpy(x[lo:hi]), torch.from_numpy(d[lo:hi])
+            xs, ds, vs, n_rows, n_dec, v_max = _agree_partition(x, d, mesh, n_dec, v_max)
+            A = xs.shape[1]
+            if grc_init:
+                # per-shard GrC (paper lines 1–2), no cross-shard dedup:
+                # duplicate keys across shards are weight-additive (module doc)
+                g = build_granularity(xs, ds, n_dec=n_dec, v_max=v_max, valid=vs, exact=True,
+                                      capacity=xs.shape[0])
+                gx, gd, gw, gvalid, num = g.x, g.d, g.w, g.valid, g.num
+            else:
+                gx, gd, gvalid = xs, ds, vs
+                gw = torch.ones((xs.shape[0],), dtype=torch.int32, device=dev)
+                num = vs.sum()
+            sp.set(rows=int(x.shape[0]), granules=host_int(num))
     n = torch.tensor(float(n_rows), dtype=torch.float32, device=dev)
 
     cap_loc = gx.shape[0]
     cap = nd * cap_loc
 
     # --- Θ(D|C) (stop target) + core, on gathered granules (one-time) ---
-    gv_h = coll.gather_data(gvalid.to(torch.int32)).to(torch.bool)
-    gran_h = Granularity(
-        x=coll.gather_data(gx), d=coll.gather_data(gd), w=coll.gather_data(gw), valid=gv_h,
-        num=gv_h.sum().to(torch.int32),
-        n_total=torch.tensor(n_rows, dtype=torch.int32, device=dev),
-        n_attrs=A, n_dec=n_dec, v_max=v_max,
-    )
-    ids_c, _ = subset_ids(gran_h, list(range(A)), exact=True)
-    theta_full = float(theta_for_ids(delta, ids_c, gran_h, n_bins=cap))
+    with _counted_span("mesh.core", n_attrs=A, n_data=nd) as sp:
+        gv_h = coll.gather_data(gvalid.to(torch.int32)).to(torch.bool)
+        gran_h = Granularity(
+            x=coll.gather_data(gx), d=coll.gather_data(gd), w=coll.gather_data(gw), valid=gv_h,
+            num=gv_h.sum().to(torch.int32),
+            n_total=torch.tensor(n_rows, dtype=torch.int32, device=dev),
+            n_attrs=A, n_dec=n_dec, v_max=v_max,
+        )
+        gathered = sum(t.numel() * t.element_size()
+                       for t in (gran_h.x, gran_h.d, gran_h.w)) + cap * 4
+        ids_c, _ = subset_ids(gran_h, list(range(A)), exact=True)
+        theta_full = host_float(theta_for_ids(delta, ids_c, gran_h, n_bins=cap))
 
-    core: List[int] = []
-    n_evals = 0
-    if compute_core:
-        inner = _core_inner_thetas(gran_h, delta, exact=True)
-        core = [int(a) for a in range(A) if inner[a] - theta_full > eps + tie_tol]
-        n_evals += A
-    del gran_h, ids_c
+        core: List[int] = []
+        n_evals = 0
+        if compute_core:
+            inner = _core_inner_thetas(gran_h, delta, exact=True)
+            core = [int(a) for a in range(A) if inner[a] - theta_full > eps + tie_tol]
+            n_evals += A
+        del gran_h, ids_c
+        sp.set(gathered_bytes=gathered, core=len(core))
 
     engine = _resolve_engine(engine, collective, mesh, -(-A // nm), cap, v_max, n_dec)
     if engine == "device":
@@ -533,27 +562,29 @@ def plar_reduce_distributed(
             nonlocal r_ids, k
             adv = _advance_step(mesh, delta, adv_bins_for(k), n_dec, v_max)
             r_ids, k_new, theta = adv(gx[:, a], r_ids, gd, gw, gvalid, n)
-            k = int(k_new)
+            k = host_int(k_new)
             reduct.append(a)
-            theta_hist.append(float(theta))
+            theta_hist.append(host_float(theta))
             return theta_hist[-1]
 
-        for a in core:
-            fold(a)
-        theta_r = theta_hist[-1] if theta_hist else float("inf")
-        remaining = [a for a in range(A) if a not in reduct]
         iterations = 0
         # f32-mirrored stop threshold: same iteration count as the device cond
         stop_thresh = measures.f32_threshold(theta_full, tol)
-        # The loop's collective bytes (every iteration's merge, regrouping and
-        # advance; not the one-time gathers of the core and Θ(D|C) above).
+        # The loop's collective bytes (the core's folds and every iteration's
+        # merge, regrouping and advance; not the one-time gathers of the core
+        # and Θ(D|C) above).
         nbytes = _MeshColl.bytes_counter()
         bytes_before = nbytes.value
-        with obs.span("mesh.loop", collective=collective, n_attrs=A, cap=cap) as sp:
+        with _counted_span("mesh.loop", collective=collective, n_attrs=A, cap=cap) as sp:
+            for a in core:
+                fold(a)
+            theta_r = theta_hist[-1] if theta_hist else float("inf")
+            remaining = [a for a in range(A) if a not in reduct]
             while remaining and theta_r > stop_thresh:
                 if max_features is not None and len(reduct) >= max_features:
                     break
                 it0 = time.perf_counter()
+                it_bytes = nbytes.value
                 n_bins = bins_for(k)
                 # candidate axis padded to the model-shard multiple (the MP level)
                 a_pad = -(-len(remaining) // nm) * nm
@@ -561,26 +592,32 @@ def plar_reduce_distributed(
                 cand[: len(remaining)] = remaining
 
                 iter_collective = collective
-                if collective == "fused":
-                    regrouped = _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh)
-                    if regrouped is None:
-                        # Classes too large to pack (early iterations) — K is small
-                        # then, so the all_reduce payload O(nc·K·m) is still cheap.
-                        iter_collective = "all_reduce"
-                        obs.counter("plar_mesh_fused_fallbacks_total",
-                                    "fused-schedule iterations run as all_reduce").inc()
-                    else:
-                        gx, gd, gw, gvalid, r_ids = regrouped
-                        obs.counter("plar_mesh_fused_iterations_total",
-                                    "iterations of the fused schedule").inc()
+                with obs.span("mesh.iteration", i=iterations, candidates=len(remaining),
+                              n_bins=n_bins) as sp_it:
+                    # regrouping (fused), the merge and the advance, to the
+                    # fold's read of Θ(D|R)
+                    if collective == "fused":
+                        regrouped = _regroup_by_class(gx, gd, gw, gvalid, r_ids, mesh)
+                        if regrouped is None:
+                            # Classes too large to pack (early iterations) — K is
+                            # small then, so the all_reduce payload O(nc·K·m) is
+                            # still cheap.
+                            iter_collective = "all_reduce"
+                            obs.counter("plar_mesh_fused_fallbacks_total",
+                                        "fused-schedule iterations run as all_reduce").inc()
+                        else:
+                            gx, gd, gw, gvalid, r_ids = regrouped
+                            obs.counter("plar_mesh_fused_iterations_total",
+                                        "iterations of the fused schedule").inc()
 
-                ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective, backend=backend,
-                                selector=selector)
-                thetas = ev(cand, r_ids, gx, gd, gw, gvalid, n).cpu().numpy().astype(np.float64)
-                thetas = thetas[: len(remaining)]
-                n_evals += len(remaining)
+                    ev = _eval_step(mesh, delta, n_bins, n_dec, v_max, iter_collective,
+                                    backend=backend, selector=selector)
+                    thetas = to_host(ev(cand, r_ids, gx, gd, gw, gvalid, n)).numpy()
+                    thetas = thetas.astype(np.float64)[: len(remaining)]
+                    n_evals += len(remaining)
 
-                theta_r = fold(remaining.pop(measures.argmin_with_ties(thetas, tie_tol)))
+                    theta_r = fold(remaining.pop(measures.argmin_with_ties(thetas, tie_tol)))
+                    sp_it.set(collective=iter_collective, bytes=nbytes.value - it_bytes)
                 iterations += 1
                 per_iter_s.append(time.perf_counter() - it0)
             sp.set(iterations=iterations, collective_bytes=nbytes.value - bytes_before)
@@ -594,4 +631,7 @@ def plar_reduce_distributed(
         n_evaluations=n_evals,
         elapsed_s=time.perf_counter() - t0,
         per_iteration_s=per_iter_s,
+        granules=Granularity(x=gx, d=gd, w=gw, valid=gvalid, num=gvalid.sum().to(torch.int32),
+                             n_total=torch.tensor(n_rows, dtype=torch.int32, device=dev),
+                             n_attrs=A, n_dec=n_dec, v_max=v_max),
     )

@@ -129,6 +129,9 @@ class ReductionResult:
     # set by the serving layer's graceful degradation (§3.10): True marks a
     # last-known-good result served because the fresh dispatch failed
     stale: bool = False
+    # the mesh driver's: this rank's granule table (its data shard's)
+    granules: Optional[Granularity] = dataclasses.field(default=None, compare=False,
+                                                        repr=False)
 
     @property
     def n_selected(self) -> int:

@@ -17,7 +17,10 @@ on ``prod(--mesh)`` ranks, one a mesh position, and rank 0 prints.  Under
 ``torchrun`` (``WORLD_SIZE`` in the environment) this process is one rank;
 otherwise the CLI spawns the ranks itself: gloo ranks on ``--device cpu``,
 NCCL ranks on ``--device cuda``, one card a rank (a mesh larger than the
-visible cards is an error).
+visible cards is an error).  On the cards each rank copies only its data
+shard's rows to its card and hands them over as its partition
+(``plar_reduce_distributed(partition=True)``); on the CPU every rank hands
+over the whole table.
 
 ``--stream`` runs the dataset at its full Table-5 shape through streaming
 GrC ingestion (chunks of ``--chunk-rows``); ``--max-rows``/``--max-attrs``
@@ -278,13 +281,22 @@ def _run(ap, args, *, rank_device=None, mesh_shape=None) -> dict:
 
 def _run_distributed(args, device, mesh_shape, x, d, source, table_shape) -> dict:
     """This rank's part of ``--distributed``; rank 0 prints."""
+    import torch
     import torch.distributed as dist
 
-    from repro_torch.core.distributed import plar_reduce_distributed
+    from repro_torch.core.distributed import partition_rows, plar_reduce_distributed
+    from repro_torch.core.engine import _MeshColl
     from repro_torch.distributed.api import make_mesh
 
     mesh = make_mesh(mesh_shape, ("data", "model"), device=device)
-    r = plar_reduce_distributed(x, d, mesh, source=source, chunk_rows=args.chunk_rows,
+    partition = x is not None and device.type == "cuda"
+    if partition:       # each card is handed its own rows only (a cached partition)
+        lo, hi = partition_rows(x.shape[0], mesh)
+        x, d = (torch.from_numpy(a[lo:hi]).to(device) for a in (x, d))
+    counter = _MeshColl.bytes_counter()
+    bytes0 = counter.value
+    r = plar_reduce_distributed(x, d, mesh, partition=partition, source=source,
+                                chunk_rows=args.chunk_rows,
                                 delta=args.delta, max_features=args.max_features,
                                 collective=args.collective, backend=args.backend,
                                 ladder=args.bin_ladder == "on", selector=args.selector,
@@ -296,7 +308,8 @@ def _run_distributed(args, device, mesh_shape, x, d, source, table_shape) -> dic
         "theta_full": r.theta_full, "iterations": r.iterations,
         "n_evaluations": r.n_evaluations, "elapsed_s": round(r.elapsed_s, 3),
         "device": device.type, "backend": args.backend, "mesh": dict(mesh.shape),
-        "collective": args.collective, "theta_history": r.theta_history,
+        "collective": args.collective, "collective_bytes": counter.value - bytes0,
+        "theta_history": r.theta_history,
     }
     if dist.get_rank() == 0:
         if args.json:

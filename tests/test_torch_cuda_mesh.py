@@ -122,3 +122,20 @@ def test_sharded_serving_tokens_equal_unsharded(nccl_mesh, arch):
     got, launches1 = greedy(nccl_mesh)
     assert torch.equal(got, want), (got, want)
     assert launches1 == launches0 and sum(launches1.values()) > 0, (launches1, launches0)
+
+
+def test_partition_path_equals_whole_table_on_four_cards(tmp_path):
+    """The mesh driver with each rank's own partition handed over, on 4 NCCL
+    ranks (mesh (4, 1), one card a rank) at 200,000 kdd99-shaped rows: bit
+    for bit the whole-table path under every schedule, on every rank, with
+    the ``mesh.*`` spans recorded (``test_torch_mesh_partition.py``'s world,
+    on the cards).  Needs 4 visible cards; skips otherwise."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: the partition path on 4 NCCL ranks")
+    import test_torch_mesh_partition as H
+
+    ranks = H.run_world(str(tmp_path), device="cuda", rows=200_000)
+    for coll, engine in H.CASES:
+        H.assert_partition_equals_whole(ranks, f"{coll}/{engine}")
+        for rec in ranks:
+            assert set(rec["cases"][f"{coll}/{engine}"]["spans"]) == set(H.SPAN_ATTRS)

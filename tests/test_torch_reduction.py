@@ -304,7 +304,7 @@ def test_port_imports_no_jax_or_repro(tmp_path):
     with frontend features, an enc-dec prefill and decode), one reduced
     training step, one sharded training step on two spawned gloo ranks
     (the LM distribution modules imported), and the mesh driver on two
-    spawned gloo ranks) leaves
+    spawned gloo ranks and, handed its partition, on one) leaves
     jax and repro out of sys.modules.  ``jax`` and ``repro`` are made
     unimportable for the process and its ranks, so a rank that imports
     either fails the run."""
@@ -408,6 +408,17 @@ def test_port_imports_no_jax_or_repro(tmp_path):
         "         '--delta', 'PR', '--device', 'cpu']\n"
         "dist_out = cli.main(flags + ['--distributed', '--mesh', '2,1', '--collective', 'fused'])\n"
         "assert dist_out['reduct'] == cli.main(flags)['reduct']\n"
+        "import tempfile, torch.distributed as tdist\n"
+        "from repro_torch.distributed import init_process_group, make_mesh\n"
+        "from repro_torch.core.distributed import plar_reduce_distributed\n"
+        "init_process_group('cpu', rank=0, world_size=1,\n"
+        "                   store_path=tempfile.mkdtemp(dir=sys.argv[1]) + '/store')\n"
+        "mesh = make_mesh((1, 1), ('data', 'model'), device='cpu')\n"
+        "part = plar_reduce_distributed(torch.from_numpy(x), torch.from_numpy(d), mesh,\n"
+        "                               partition=True, delta='SCE', engine='host')\n"
+        "assert part.reduct == plar_reduce_distributed(x, d, mesh, delta='SCE',\n"
+        "                                              engine='host').reduct\n"
+        "tdist.destroy_process_group()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -419,7 +430,7 @@ def test_port_imports_no_jax_or_repro(tmp_path):
     env["OMP_NUM_THREADS"] = "1"
     env["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp_path / "autotune.json")
     root = os.path.dirname(src)
-    p = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+    p = subprocess.run([sys.executable, "-c", code, str(tmp_path)], env=env, capture_output=True,
                        text=True, timeout=120, cwd=root)
     assert p.returncode == 0, p.stdout + p.stderr
     assert "BAD []" in p.stdout
